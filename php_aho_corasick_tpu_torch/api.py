@@ -1,0 +1,520 @@
+"""The :class:`Matcher` of the PyTorch port — the resident-corpus serving
+path.
+
+Counterpart of the JAX package's ``api.py``, for what this port covers so
+far: the build lifecycle (``add_patterns`` / ``finalize`` / ``close``),
+:meth:`Matcher.device_corpus` and the columnar scans
+(:meth:`Matcher.match_arrays`, :meth:`Matcher.match_arrays_many`) through
+the sampled cascade's records chain.  Results are the reference's
+columnar arrays: ``doc``, ``pos`` (exclusive byte end), ``start_postion``
+(sic — the reference API's field name) and ``pattern`` (index into the
+accepted patterns), in reference emission order.
+
+A matcher runs on one device: CUDA unless the caller passes
+``device="cpu"``.  Where the path meets a mode this port does not have
+yet, it raises ``NotImplementedError`` naming the ROADMAP item; it never
+falls back to another engine silently.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .config import DEFAULT_CONFIG, ScanConfig
+from .core import TrieBuilder, compile_trie, empty_automaton
+from .errors import AddStatus, AhoError, warn
+from .models.dense_dfa import DenseDfaModel
+from .ops.matches import PackedRows, pack_documents
+from .patterns import Pattern, parse_batch
+
+Haystack = Union[str, bytes, bytearray]
+
+_UNSET = object()
+
+
+class StateError(AhoError):
+    """Operation on a closed matcher, or a lifecycle-order violation
+    (reference: PHP warning + ``false``)."""
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP queue 1 item {item}"
+    )
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a matcher runs on: CUDA by default, the CPU only when
+    asked for.  Raises ``RuntimeError`` when CUDA is wanted but absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class DeviceCorpus:
+    """Device-resident packed corpus handle: :meth:`Matcher.device_corpus`
+    pays ``pack_documents`` + the host->device copy once, and every scan
+    against the handle re-reads the resident bytes.  The corpus word
+    phases of the fused filter are cached per handle the first time a
+    scan needs them."""
+
+    def __init__(self, packed: PackedRows, chunks_d, lengths_d,
+                 emit_from_d, n_docs: int, total_bytes: int,
+                 chunk_len: int):
+        self.packed = packed
+        self.chunks_d = chunks_d
+        self.lengths_d = lengths_d
+        self.emit_from_d = emit_from_d
+        self.n_docs = n_docs
+        self.total_bytes = total_bytes
+        self.chunk_len = chunk_len
+        self._phase_cache: dict = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.chunks_d.device
+
+    def fused_phases(self, cascade_model):
+        """Lazily cached corpus word phases of the fused filter
+        (ops/filter_torch.fused_phase_grid), one corpus-sized residency
+        per distinct stride; ``None`` when the plan's alignment gate
+        fails."""
+        if cascade_model is None:
+            return None
+        p = cascade_model.plan
+        L = self.chunks_d.shape[1]
+        if (
+            p.mode != "sampled"
+            or not p.stride
+            or p.stride % 4
+            or L % p.stride
+            or cascade_model.bloom_impl() != "pallas_vmem"
+        ):
+            return None
+        key = p.stride
+        if key not in self._phase_cache:
+            from .ops.filter_torch import fused_phase_grid
+
+            self._phase_cache[key] = fused_phase_grid(
+                self.chunks_d, spc=p.stride // 4
+            )
+        return self._phase_cache[key]
+
+    def dev_inputs_for(self, cascade_model):
+        """``dev_inputs`` extended with the cached fused-filter phases
+        (consumed by ``CascadeModel.run_arrays``)."""
+        return (
+            self.chunks_d, self.lengths_d, self.emit_from_d,
+            self.fused_phases(cascade_model),
+        )
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (
+            f"DeviceCorpus(docs={self.n_docs}, bytes={self.total_bytes}, "
+            f"chunk_len={self.chunk_len}, device={self.device})"
+        )
+
+
+def _as_bytes(h: Haystack) -> bytes:
+    if isinstance(h, str):
+        return h.encode("utf-8")
+    return bytes(h)
+
+
+class Matcher:
+    """Multi-pattern byte matcher served by the sampled cascade on one
+    device."""
+
+    def __init__(
+        self,
+        patterns: Optional[Sequence[Any]] = None,
+        config: ScanConfig = DEFAULT_CONFIG,
+        device=None,
+    ) -> None:
+        from .utils.logging import ScanStats
+
+        self.config = config
+        self.device = resolve_device(device)
+        self._trie = TrieBuilder(config.max_pattern_length)
+        self._patterns: List[Pattern] = []  # accepted patterns, id = index
+        self._statuses: List[AddStatus] = []
+        self._auto = None
+        self._model = None
+        self._used_bytes: set = set()
+        self._cascade = _UNSET
+        self.stats = ScanStats()
+        self._finalized = False
+        self._valid = True
+        if patterns is not None:
+            self.add_patterns(patterns)
+
+    # ------------------------------------------------------------ build
+
+    def add_patterns(self, specs: Sequence[Any]) -> List[AddStatus]:
+        """Validate and insert a batch of pattern specs (the whole batch
+        is validated before any insertion).  Returns one
+        :class:`AddStatus` per spec; non-SUCCESS patterns are absent from
+        the automaton."""
+        if not self._valid:
+            warn("add_patterns on a closed matcher")
+            raise StateError("matcher is closed")
+        if self._finalized:
+            warn("Cannot add patterns to an already finalized automaton")
+            raise StateError("automaton already finalized")
+        statuses = []
+        for p in parse_batch(specs):
+            st = self._trie.add(p.value)
+            if st == AddStatus.SUCCESS:
+                self._patterns.append(p)
+                self._used_bytes.update(p.value)
+            statuses.append(st)
+        self._statuses.extend(statuses)
+        return statuses
+
+    def finalize(self) -> bool:
+        """Compile the automaton. Idempotent; True only on the transition."""
+        if not self._valid:
+            warn("finalize on a closed matcher")
+            raise StateError("matcher is closed")
+        if self._finalized:
+            return False
+        if not self._patterns:
+            self._auto = empty_automaton()
+        elif self._use_compressed_table():
+            raise _not_ported("the compressed transition table", 7)
+        else:
+            self._auto = compile_trie(
+                self._trie,
+                [len(p) for p in self._patterns],
+                allow_int16=self.config.allow_int16_states,
+            )
+        self._trie.closed = True
+        self._model = DenseDfaModel(self._auto, self.config, self.device)
+        self._finalized = True
+        return True
+
+    def _use_compressed_table(self) -> bool:
+        fmt = self.config.table_format
+        if fmt != "auto":
+            return fmt == "compressed"
+        S = self._trie.n_states
+        C = len(self._used_bytes) + 1
+        dtype_bytes = 2 if (self.config.allow_int16_states and S <= 32767) else 4
+        return S * C * dtype_bytes > self.config.dense_table_max_bytes
+
+    # ------------------------------------------------------------ query
+
+    @property
+    def automaton(self):
+        """The frozen compiled automaton (:class:`CompiledAutomaton`)."""
+        if not self._finalized:
+            self.finalize()
+        return self._auto
+
+    @property
+    def model(self) -> DenseDfaModel:
+        if not self._finalized:
+            self.finalize()
+        return self._model
+
+    def is_valid(self) -> bool:
+        return self._valid
+
+    @property
+    def cascade_model(self):
+        """Lazily planned cascade filter model (models/cascade.py);
+        ``None`` when the pattern set is ineligible."""
+        if self._cascade is _UNSET:
+            from .models.cascade import CascadeModel, plan_cascade
+
+            plan = plan_cascade(
+                [p.value for p in self._patterns], self.automaton, self.config
+            )
+            self._cascade = (
+                CascadeModel(
+                    self.automaton, plan, self.config,
+                    dense_model=self.model, stats=self.stats,
+                    device=self.device,
+                )
+                if plan.eligible
+                else None
+            )
+        return self._cascade
+
+    def _pick_engine(self, total_payload: int) -> str:
+        """Engine of a scan: the sampled cascade, the only engine this
+        port has.  Any other choice raises."""
+        cfg = self.config
+        if cfg.engine in ("dfa", "kgram", "tile"):
+            item = {"dfa": 5, "kgram": 7, "tile": 8}[cfg.engine]
+            raise _not_ported(f"the {cfg.engine!r} engine", item)
+        if cfg.engine == "cascade":
+            if self.cascade_model is None:
+                raise ValueError(
+                    "cascade engine forced but pattern set is ineligible"
+                )
+            return "cascade"
+        if (
+            total_payload >= cfg.cascade_min_bytes
+            and self.cascade_model is not None
+        ):
+            return "cascade"
+        raise _not_ported(
+            "the dense DFA engine (scans under cascade_min_bytes, or "
+            "pattern sets the cascade cannot plan)", 5
+        )
+
+    # ------------------------------------------------------------ scans
+
+    def _check_open(self) -> None:
+        if not self._valid:
+            warn("match on a closed matcher")
+            raise StateError("matcher is closed")
+        if not self._finalized:
+            self.finalize()
+
+    def device_corpus(
+        self, haystacks: Sequence[Haystack], shard: Optional[bool] = None
+    ) -> DeviceCorpus:
+        """Pack + upload a corpus once, returning a resident
+        :class:`DeviceCorpus` accepted by :meth:`match_arrays` and
+        :meth:`match_arrays_many`.  ``shard=True`` (rows over several
+        devices) is not ported."""
+        if not self._valid:
+            warn("device_corpus on a closed matcher")
+            raise StateError("matcher is closed")
+        if not self._finalized:
+            self.finalize()
+        if shard:
+            raise _not_ported("the sharded device corpus", 10)
+        docs = [_as_bytes(h) for h in haystacks]
+        total = sum(map(len, docs))
+        if total > self.config.max_launch_bytes:
+            raise AhoError(
+                f"device corpus of {total} bytes exceeds "
+                f"max_launch_bytes={self.config.max_launch_bytes}; "
+                "split into multiple handles"
+            )
+        halo = max(self._auto.max_len - 1, 0)
+        packed = pack_documents(
+            docs, self._pack_chunk_len(), halo, self.config.batch_pad,
+            row_align=self._row_align(),
+        )
+
+        def put(x):
+            return torch.from_numpy(x).to(self.device)
+
+        return DeviceCorpus(
+            packed, put(packed.chunks), put(packed.lengths),
+            put(packed.emit_from), len(docs), total, self.config.chunk_len,
+        )
+
+    def _pack_chunk_len(self) -> int:
+        """Chunk row length used for packing: ``chunk_len`` rounded up to
+        a multiple of the sampled cascade's stride (when cell-aligned)."""
+        base = self.config.chunk_len
+        cm = self.cascade_model
+        if cm is not None and cm.plan.mode == "sampled":
+            s = cm.plan.stride
+            if s and s % 4 == 0 and base % s:
+                return ((base + s - 1) // s) * s
+        return base
+
+    def _row_align(self) -> int:
+        """Row-length alignment for ``pack_documents``: ``lcm(stride,
+        128)`` when the fused filter applies, so the packed ``L`` always
+        satisfies its ``stride | L`` gate."""
+        import math
+
+        cm = self.cascade_model
+        if cm is not None and cm.plan.mode == "sampled":
+            s = cm.plan.stride
+            if s and s % 4 == 0:
+                return math.lcm(s, 128)
+        return 128
+
+    def _check_handle(self, dc: DeviceCorpus) -> None:
+        if dc.device != self.device:
+            raise ValueError(
+                f"corpus handle lives on {dc.device}, matcher on {self.device}"
+            )
+
+    def _scan_handle_arrays(self, dc: DeviceCorpus):
+        self._check_handle(dc)
+        self._pick_engine(dc.total_bytes)
+        cm = self.cascade_model
+        return cm.run_arrays(
+            dc.packed, self.config.match_capacity,
+            dev_inputs=dc.dev_inputs_for(cm),
+        )
+
+    def match_arrays(
+        self,
+        haystacks: Union[Sequence[Haystack], DeviceCorpus],
+        find_all: bool = True,
+    ) -> dict:
+        """Columnar scan output: ``{"doc", "pos", "start_postion",
+        "pattern"}`` int64 arrays in reference emission order.  A
+        document list is packed and uploaded (:meth:`device_corpus`, in
+        groups of at most ``max_launch_bytes``) and scanned like a
+        handle."""
+        self._check_open()
+        if isinstance(haystacks, DeviceCorpus):
+            dc = haystacks
+            if self._auto.n_patterns == 0:
+                z = np.zeros(0, np.int64)
+                return self._arrays_result(dc, z, z, z, find_all)
+            return self._arrays_result(
+                dc, *self._scan_handle_arrays(dc), find_all=find_all
+            )
+        docs = [_as_bytes(h) for h in haystacks]
+        groups: List[List[int]] = []
+        group: List[int] = []
+        group_bytes = 0
+        for i, d in enumerate(docs):
+            if group and group_bytes + len(d) > self.config.max_launch_bytes:
+                groups.append(group)
+                group, group_bytes = [], 0
+            group.append(i)
+            group_bytes += len(d)
+        if group:
+            groups.append(group)
+        parts = []
+        for g in groups:
+            res = self.match_arrays(
+                self.device_corpus([docs[i] for i in g]), find_all
+            )
+            res["doc"] = np.asarray(g, dtype=np.int64)[res["doc"]]
+            parts.append(res)
+        if not parts:
+            z = np.zeros(0, np.int64)
+            return {"doc": z, "pos": z, "start_postion": z, "pattern": z}
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    def match_arrays_many(
+        self,
+        handles: Sequence[DeviceCorpus],
+        find_all: bool = True,
+    ) -> List[dict]:
+        """Pipelined columnar scan of several resident corpora: every
+        device chain is enqueued back to back with no host fetch in
+        between, and all occupancy counts come back in one trailing
+        fetch.  Returns one :meth:`match_arrays`-style dict per handle."""
+        self._check_open()
+        handles = list(handles)
+        if not handles:
+            return []
+        if self._auto.n_patterns == 0:
+            return [self.match_arrays(h, find_all) for h in handles]
+        for h in handles:
+            self._check_handle(h)
+            self._pick_engine(h.total_bytes)
+        cm = self.cascade_model
+        if cm.plan.mode != "sampled" or not cm.records_ok:
+            raise _not_ported(
+                f"serving without device records (plan {cm.plan.mode!r}, "
+                f"win_len={cm.win_len}, states={self._auto.n_states})", 6
+            )
+        return self._records_batch_finish(
+            *self._records_batch_dispatch(handles, cm), find_all
+        )
+
+    def _records_batch_dispatch(self, handles, cm):
+        """Enqueue the speculative records chains for a batch — device
+        work only, no host fetch."""
+        cap_a = max(cm._cap_hits, 256)
+        cap_r = max(cm._cap_flagged, 256)
+        outs = [
+            cm.launch_device_records(
+                h.chunks_d, h.lengths_d, h.emit_from_d, cap_a, cap_r,
+                phase_g=h.fused_phases(cm),
+            )
+            for h in handles
+        ]
+        return handles, cm, outs, cap_a, cap_r
+
+    def _records_batch_finish(self, handles, cm, outs, cap_a, cap_r,
+                              find_all):
+        counts = (
+            torch.stack([s for o in outs for s in o[2:5]])
+            .reshape(len(outs), 3)
+            .tolist()
+        )
+        # one concatenated fetch for every in-capacity handle's records
+        pieces = []
+        for (rc, rp, _, _, _), (n, nr, nc) in zip(outs, counts):
+            if n <= cap_a and nr <= cap_r and nc <= cm._cap_coarse and nr > 0:
+                pieces.append(rc[:nr])
+                pieces.append(rp[:nr])
+        rec_flat = torch.cat(pieces).cpu().numpy() if pieces else None
+        off = 0
+        results = []
+        for h, (n, nr, nc) in zip(handles, counts):
+            if n > cap_a or nr > cap_r or nc > cm._cap_coarse:
+                # overflow: this handle re-runs through the adaptive path
+                arrays = cm.run_arrays(
+                    h.packed, self.config.match_capacity,
+                    dev_inputs=h.dev_inputs_for(cm),
+                )
+            elif nr == 0:
+                z = np.zeros(0, np.int64)
+                arrays = (z, z, z)
+            else:
+                rc_np = rec_flat[off : off + nr]
+                rp_np = rec_flat[off + nr : off + 2 * nr]
+                off += 2 * nr
+                arrays = cm.emit_records_arrays(h.packed, rc_np, rp_np, nr)
+            results.append(
+                self._arrays_result(h, *arrays, find_all=find_all)
+            )
+        return results
+
+    def _arrays_result(self, dc, docs_a, ends_a, pids_a, find_all) -> dict:
+        if not find_all and docs_a.shape[0]:
+            # keep only each doc's first end-position group
+            _, first_idx = np.unique(docs_a, return_index=True)
+            first_pos = np.full(int(docs_a.max()) + 1, -1, dtype=np.int64)
+            first_pos[docs_a[first_idx]] = ends_a[first_idx]
+            keep = ends_a == first_pos[docs_a]
+            docs_a, ends_a, pids_a = (
+                docs_a[keep], ends_a[keep], pids_a[keep]
+            )
+        starts_a = ends_a - self._auto.pat_lens[pids_a]
+        self.stats.record(
+            "arrays", str(self.device), dc.total_bytes,
+            int(docs_a.shape[0]),
+        )
+        return {
+            "doc": docs_a,
+            "pos": ends_a,
+            "start_postion": starts_a,  # sic: reference API typo
+            "pattern": pids_a,
+        }
+
+    # ------------------------------------------------------------ teardown
+
+    def close(self) -> bool:
+        """Invalidate the matcher (finalizes first; a second call returns
+        False)."""
+        if not self._valid:
+            return False
+        if not self._finalized:
+            self.finalize()
+        self._valid = False
+        return True
+
+    def __enter__(self) -> "Matcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

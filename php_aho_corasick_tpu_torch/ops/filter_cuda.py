@@ -1,0 +1,348 @@
+"""Fused sampled filter: the hand-written Hopper kernel and its plain
+PyTorch version.
+
+Counterpart of the JAX package's ``ops/filter_pallas.py`` (its
+``fused_sampled_extract`` Pallas kernel).  For every stride cell of the
+corpus grid the filter
+
+1. assembles the q-gram code from the ``spc`` corpus word phases,
+2. ANDs ``k`` salted bank-bloom words (``pack`` sub-words per physical
+   word), gated by ``min_long_len``,
+3. with ``prefix_on``, takes the ``l16``-byte polynomial hash of the
+   candidate window named by the lowest set alignment bit,
+4. rank-extracts up to ``mpr`` survivors per (1024-row block, lane)
+   column into ``[n_blocks * mpr, 128]`` slot arrays plus per-column
+   survivor counts, and
+5. optionally refines the slots against the small prefix bit bloom.
+
+On a CUDA tensor :func:`fused_sampled_extract` launches
+``csrc/fused_sampled_extract.cu``; on a CPU tensor it runs
+:func:`_fused_extract_torch`, which the tests hold bit for bit against
+the JAX package's own mirror of its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .filter_torch import (
+    FUSED_BLOCK_R, GRAM_BASE, KNUTH, U32_MASK, mul32, to_i32, u32,
+)
+
+
+def _bank_probe_torch(table, code_u, salts, log2_rows, pack):
+    """AND over ``salts`` of each code's salted bloom word (flat probe of
+    the ``[k * N / pack, 128]`` bank table; ``pack`` banks share a
+    physical word as ``32 / pack``-bit sub-words).  ``code_u`` holds the
+    codes as unsigned 32-bit values in int64."""
+    N = (1 << log2_rows) // pack  # physical words per probe table
+    sw = 32 // pack
+    words_flat = table.reshape(-1)
+    acc = None
+    for p, salt in enumerate(salts):
+        rows = mul32(code_u ^ salt, KNUTH) >> (32 - log2_rows)
+        if pack > 1:
+            lane = rows & 127
+            bank = rows >> 7
+            phys = (bank // pack) * 128 + lane
+            got = u32(words_flat[p * N + phys])
+            got = to_i32((got >> ((bank % pack) * sw)) & ((1 << sw) - 1))
+        else:
+            got = words_flat[p * N + rows]
+        acc = got if acc is None else (acc & got)
+    return acc
+
+
+def _window_offsets(spc: int) -> int:
+    """First word offset (relative to a cell's first word) covering the
+    candidate windows ``[p - (s-1), p + l16)`` of the cell at byte ``p``."""
+    s = 4 * spc
+    return -((s - 1 + 3) // 4)
+
+
+def _prefix_hash_select(get_plane, w, s, l16, c_min):
+    """Rolling ``l16``-byte prefix hash of every cell's candidate window
+    for the alignment named by the LOWEST set bit of ``w`` (0 when ``w``
+    has none of its ``s`` alignment bits set).  ``get_plane(c)`` returns
+    the corpus word at offset ``c`` from each cell's first word."""
+    K = GRAM_BASE
+    KL = pow(GRAM_BASE, l16 - 1, 1 << 32)
+    byte_memo = {}
+
+    def b(x):
+        if x not in byte_memo:
+            c, k = c_min + x // 4, x % 4
+            byte_memo[x] = (u32(get_plane(c)) >> (8 * k)) & 0xFF
+        return byte_memo[x]
+
+    smask = (1 << s) - 1 if s < 32 else U32_MASK
+    w8 = u32(w) & smask
+    low = w8 & (-w8)  # lowest set bit as an unsigned value (0: none)
+    off = -4 * c_min - (s - 1)  # window start byte of alignment s-1
+    H = torch.zeros(w.shape, dtype=torch.int64, device=w.device)
+    for i in range(l16):
+        H = (H + b(off + i) * pow(GRAM_BASE, l16 - 1 - i, 1 << 32)) & U32_MASK
+    h = torch.where(low == (1 << (s - 1)), H, 0)
+    for j in range(s - 2, -1, -1):
+        H = (mul32((H - b(off) * KL) & U32_MASK, K) + b(off + l16)) & U32_MASK
+        off += 1
+        h = torch.where(low == (1 << j), H, h)
+    return to_i32(h)
+
+
+def prefix_refine_words(w, ok, stride):
+    """Zero the long word of a slot whose single coarse alignment bit
+    failed the prefix probe; multi-bit slots pass unrefined (exactness
+    never rests on a bloom)."""
+    smask = (1 << stride) - 1 if stride < 32 else U32_MASK
+    v = u32(w) & smask
+    single = (v != 0) & ((v & (v - 1)) == 0)
+    keep = torch.logical_not(single) | (ok == 1)
+    return torch.where(keep, w, 0)
+
+
+def _prefix_slot_ok(h_s, prefix_table, prefix_salts, prefix_log2):
+    """AND over ``prefix_salts`` of each slot hash's bit in the prefix
+    bit bloom."""
+    words_flat = prefix_table.reshape(-1)
+    ok = None
+    for salt in prefix_salts:
+        slot = mul32(u32(h_s) ^ salt, KNUTH) >> (32 - prefix_log2)
+        word = words_flat[slot >> 5].to(torch.int64)
+        bit = (word >> (slot & 31)) & 1
+        ok = bit if ok is None else (ok & bit)
+    return ok
+
+
+def group_rank_extract(w, sw, hval, block_r, mpr, n_blocks, n_grid):
+    """Survivor rank extraction per block column: slot ``k`` of column
+    (block ``i``, lane ``l``) holds the (k+1)-th hit in row order at row
+    ``i * mpr + k``.  Inputs are flat ``[n_blocks * block_r * 128]``;
+    returns ``(r_s, w_s, swo_s, h_s, cnt)`` with ``r_s = -1`` and zeros in
+    empty slots and ``cnt [n_blocks, 128]`` counting every hit."""
+    dev = w.device
+    tot = n_blocks * block_r * 128
+    cell = torch.arange(tot, device=dev)
+    hit = (((w | sw) != 0) & (cell < n_grid)).reshape(n_blocks, block_r, 128)
+    hi = hit.to(torch.int32)
+    cnt = hi.sum(dim=1, dtype=torch.int32)
+    ranks = torch.cumsum(hi, dim=1)
+    sel = hit & (ranks <= mpr)
+    n_slots = n_blocks * mpr * 128
+    blk_i = torch.arange(n_blocks, device=dev)[:, None, None]
+    lane_i = torch.arange(128, device=dev)[None, None, :]
+    row_i = torch.arange(block_r, device=dev, dtype=torch.int32)[None, :, None]
+    # every selected cell owns a distinct slot; the rest all land in one
+    # spare slot past the end, which is cut off (a fixed-shape scatter:
+    # no host synchronisation)
+    dst = torch.where(sel, (blk_i * mpr + ranks - 1) * 128 + lane_i, n_slots)
+
+    def slots(fill, values):
+        out = torch.full((n_slots + 1,), fill, dtype=torch.int32, device=dev)
+        out.scatter_(0, dst.reshape(-1), values.reshape(-1))
+        return out[:n_slots].reshape(n_blocks * mpr, 128)
+
+    return (
+        slots(-1, row_i.expand(n_blocks, block_r, 128)),
+        slots(0, w),
+        slots(0, sw),
+        slots(0, hval),
+        cnt,
+    )
+
+
+def _fused_extract_torch(
+    table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
+    block_r, n_blocks, n_grid, l16, prefix_on, prefix_table=None,
+    prefix_salts=(), prefix_log2=0,
+):
+    """Plain PyTorch version of the fused kernel (same plane, slot and
+    hash semantics); runs on any device."""
+    tot = n_blocks * block_r * 128
+    dev = table.device
+
+    def get_plane(c):
+        ph, d = c % spc, c // spc
+        pf = phase_g[ph].reshape(-1)
+        if d >= 0:
+            return pf[d : d + tot]
+        # the corpus has no bytes before offset 0
+        return torch.cat(
+            [torch.zeros(-d, dtype=pf.dtype, device=dev), pf[: tot + d]]
+        )
+
+    code = torch.zeros(tot, dtype=torch.int64, device=dev)
+    for j in range(q):
+        j4, k = divmod(j, 4)
+        byte = (u32(get_plane(j4)) >> (8 * k)) & 0xFF
+        code = (code + byte * pow(GRAM_BASE, q - 1 - j, 1 << 32)) & U32_MASK
+    w = _bank_probe_torch(table, code, salts, log2_rows, pack)
+    w = torch.where(mll.reshape(()) > 0, w, 0)
+    sw = sw_g.reshape(-1) if sw_g is not None else torch.zeros_like(w)
+    if prefix_on:
+        c_min = _window_offsets(spc)
+        hval = _prefix_hash_select(get_plane, w, 4 * spc, l16, c_min)
+    else:
+        hval = to_i32(code)
+    r_s, w_s, swo_s, h_s, cnt = group_rank_extract(
+        w, sw, hval, block_r, mpr, n_blocks, n_grid
+    )
+    if prefix_table is not None and prefix_on:
+        ok = _prefix_slot_ok(h_s, prefix_table, prefix_salts, prefix_log2)
+        w_s = prefix_refine_words(w_s, ok, 4 * spc)
+    return r_s, w_s, swo_s, h_s, cnt
+
+
+def _check(name, t, shape, device):
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _u32_array(values, n):
+    arr = (ctypes.c_uint32 * n)()
+    for i, v in enumerate(values):
+        arr[i] = v & U32_MASK
+    return arr
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: C signature of ``fused_sampled_extract_launch`` (csrc/*.cu)
+_ARGTYPES = [
+    _P, _LL,  # table, table words
+    _P, _LL, _I,  # phases, words per phase, spc
+    _P, _P, _LL, _P,  # sw, prefix table, prefix words, mll
+    _P, _I, _I, _I,  # salts, k, log2_rows, pack
+    _P, _I, _I, _I, _I,  # gram weights, q, mpr, n_blocks, n_grid
+    _P, _I, _I,  # prefix weights, l16, prefix_on
+    _P, _I, _I,  # prefix salts, n prefix salts, prefix_log2
+    _P, _P, _P, _P, _P,  # r_s, w_s, swo_s, h_s, cnt
+    _P,  # stream
+]
+
+
+def _launch_cuda(
+    table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
+    n_blocks, n_grid, l16, prefix_on, prefix_table, prefix_salts,
+    prefix_log2,
+):
+    from ._build import load_library
+
+    lib = load_library("fused_sampled_extract")
+    fn = lib.fused_sampled_extract_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    dev = table.device
+    out_shape = (n_blocks * mpr, 128)
+    r_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    w_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    swo_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    h_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    cnt = torch.empty((n_blocks, 128), dtype=torch.int32, device=dev)
+    gram_w = [pow(GRAM_BASE, q - 1 - j, 1 << 32) for j in range(q)]
+    pref_w = [pow(GRAM_BASE, l16 - 1 - i, 1 << 32) for i in range(l16)]
+    rc = fn(
+        table.data_ptr(), table.numel(),
+        phase_g.data_ptr(), phase_g.shape[1] * 128, spc,
+        sw_g.data_ptr() if sw_g is not None else None,
+        prefix_table.data_ptr() if prefix_table is not None else None,
+        prefix_table.numel() if prefix_table is not None else 0,
+        mll.data_ptr(),
+        _u32_array(salts, len(salts)), len(salts), log2_rows, pack,
+        _u32_array(gram_w, q), q, mpr, n_blocks, n_grid,
+        _u32_array(pref_w, max(l16, 1)), l16, int(bool(prefix_on)),
+        _u32_array(prefix_salts, max(len(prefix_salts), 1)),
+        len(prefix_salts), prefix_log2,
+        r_s.data_ptr(), w_s.data_ptr(), swo_s.data_ptr(), h_s.data_ptr(),
+        cnt.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_sampled_extract kernel launch failed: CUDA error {rc}"
+        )
+    return r_s, w_s, swo_s, h_s, cnt
+
+
+def fused_sampled_extract(
+    table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
+    phase_g: torch.Tensor,  # [spc, R_pad + 8, 128] int32 word phases
+    sw_g: Optional[torch.Tensor],  # [R_pad, 128] int32 short words
+    mll: torch.Tensor,  # [1, 1] int32 min_long_len
+    *,
+    salts: tuple,
+    log2_rows: int,
+    pack: int,
+    q: int,
+    spc: int,  # corpus words per grid cell (stride // 4)
+    mpr: int,  # slots per block column (multiple of 8, <= 128)
+    block_r: int = FUSED_BLOCK_R,
+    n_grid: int,  # valid cells (B * M); the rest is padding
+    l16: int = 0,  # prefix-hash window bytes
+    prefix_on: bool = False,
+    prefix_table: Optional[torch.Tensor] = None,  # [pb_rows, 128] int32
+    prefix_salts: tuple = (),
+    prefix_log2: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """Fused codes + probe + rank-extract.  Returns ``(r_s, w_s, swo_s,
+    h_s, cnt)``: slot arrays ``[n_blocks * mpr, 128]`` (block ``i``'s
+    slots at rows ``[i*mpr, (i+1)*mpr)``; ``r_s`` = row within the block,
+    -1 when empty) and ``cnt [n_blocks, 128]`` the per-column survivor
+    counts (``max(cnt) > mpr`` means slots were dropped: retry with a
+    bigger ``mpr``).  ``h_s`` is the slot's prefix-window hash when
+    ``prefix_on``, else its q-gram code.
+
+    A CUDA ``table`` launches the Hopper kernel (counted in
+    ``fused_sampled_extract.launches``); a CPU one runs the plain
+    version."""
+    if mpr % 8 or not 8 <= mpr <= 128:
+        raise ValueError(f"mpr={mpr}: must be a multiple of 8 in [8, 128]")
+    R_pad = phase_g.shape[1] - 8
+    n_blocks = R_pad // block_r
+    if not table.is_cuda:
+        return _fused_extract_torch(
+            table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
+            block_r, n_blocks, n_grid, l16, prefix_on,
+            prefix_table=prefix_table, prefix_salts=prefix_salts,
+            prefix_log2=prefix_log2,
+        )
+    dev = table.device
+    n_banks = (1 << log2_rows) // 128
+    if block_r != FUSED_BLOCK_R or R_pad % FUSED_BLOCK_R:
+        raise ValueError(f"the CUDA kernel takes block_r={FUSED_BLOCK_R} only")
+    if not (1 <= len(salts) <= 8 and pack in (1, 2, 4)
+            and 7 <= log2_rows <= 31 and n_banks % pack == 0 and 1 <= q <= 16
+            and 1 <= spc <= 8 and 0 <= l16 <= 20
+            and len(prefix_salts) <= 2 and n_grid <= R_pad * 128):
+        raise ValueError("fused_sampled_extract: unsupported configuration")
+    _check("table", table, (len(salts) * n_banks // pack, 128), dev)
+    _check("phase_g", phase_g, (spc, R_pad + 8, 128), dev)
+    if sw_g is not None:
+        _check("sw_g", sw_g, (R_pad, 128), dev)
+    _check("mll", mll, (1, 1), dev)
+    if prefix_table is not None:
+        _check("prefix_table", prefix_table, (prefix_table.shape[0], 128),
+               dev)
+        if not 5 <= prefix_log2 <= 31 or (
+            prefix_table.numel() * 32 != 1 << prefix_log2
+        ):
+            raise ValueError("prefix_table size must be 2**prefix_log2 bits")
+    out = _launch_cuda(
+        table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
+        n_blocks, n_grid, l16, prefix_on, prefix_table, prefix_salts,
+        prefix_log2,
+    )
+    fused_sampled_extract.launches += 1
+    return out
+
+
+fused_sampled_extract.launches = 0

@@ -1,0 +1,461 @@
+"""Sampled gram-filter cascade in PyTorch: the resident-corpus records
+chain (filter -> slot compaction -> 2-step window verify).
+
+Counterpart of the JAX package's ``ops/filter_jax.py``, fused branch
+only.  Any occurrence of a pattern of length >= ``min_long`` covers
+exactly one point of a ``stride`` lattice, so a positional-alignment
+bloom (bit ``j`` set <=> some long pattern has this q-gram at offset
+``j``) is probed only at grid points.  Survivors are rank-extracted by
+the fused kernel (ops/filter_cuda.py), refined, compacted and verified by
+an exact DFA walk over their candidate windows, which emits compacted
+``(cell, state*32 + j)`` match records for the host to expand.
+
+32-bit unsigned hash arithmetic is done in int64 with ``& U32_MASK``:
+``torch.uint32`` lacks shifts and adds, and int32 ``>>`` is arithmetic.
+Outputs agree with the JAX package bit for bit, in slot order.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from .scan_torch import INT32_MAX, _classes, blocked_nonzero
+
+KNUTH = 2654435761  # Knuth multiplicative hash constant
+#: polynomial rolling-hash base of the sampled gram codes (FNV-1 prime)
+GRAM_BASE = 0x01000193
+#: second code family of the signature-scale positional bloom (the
+#: planner builds it; its grouped take path is not ported yet)
+GRAM_BASE2 = 0x31000197
+SALT2 = 0x6A09E667
+#: grid-block height of the fused filter, and so the survivor-group size
+#: of its rank extraction (``cap_coarse`` counts survivors per column)
+FUSED_BLOCK_R = 1024
+#: record slots per verified window; windows with more final positions
+#: emit a sentinel record and are re-walked exactly on the host
+VERIFY_KR = 4
+#: sentinel ``j`` of a window whose record slots overflowed
+REC_OVERFLOW_J = 31
+#: state-field width of the packed 2-step verify entry (s2 | s1 << 15)
+REC2_BITS = 15
+
+U32_MASK = 0xFFFFFFFF
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """The bits of an int32 tensor as unsigned values in int64."""
+    return x.to(torch.int64) & U32_MASK
+
+
+def mul32(a: torch.Tensor, k: int) -> torch.Tensor:
+    """``a * k mod 2**32`` for unsigned 32-bit values ``a`` held in int64,
+    with no int64 overflow (``k`` split into 16-bit halves)."""
+    lo = a * (k & 0xFFFF)
+    hi = ((a * (k >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & U32_MASK
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values in int64 -> the same bits as int32."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def short_pattern_mask(
+    chunks: torch.Tensor, shorts: Sequence[bytes]
+) -> torch.Tensor:
+    """Exact start positions of short patterns via compare-select."""
+    B, L = chunks.shape
+    mask = torch.zeros((B, L), dtype=torch.bool, device=chunks.device)
+    maxs = max((len(s) for s in shorts), default=0)
+    if maxs == 0:
+        return mask
+    pad = torch.zeros((B, maxs), dtype=torch.uint8, device=chunks.device)
+    ext = torch.cat([chunks, pad], dim=1)
+    for s in shorts:
+        eq = torch.ones((B, L), dtype=torch.bool, device=chunks.device)
+        for j, byte in enumerate(s):
+            eq &= ext[:, j : j + L] == byte
+        mask |= eq
+    return mask
+
+
+def _short_start_words(chunks, lengths, shorts, stride, M):
+    """Exact short-pattern starts packed per grid cell (bit ``i`` =>
+    short match starting at ``m * stride + i``)."""
+    B, L = chunks.shape
+    dev = chunks.device
+    sm = short_pattern_mask(chunks, shorts)
+    sm &= torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    pad = torch.zeros((B, M * stride - L), dtype=torch.bool, device=dev)
+    cell = torch.cat([sm, pad], dim=1).reshape(B, M, stride)
+    acc = torch.zeros((B, M), dtype=torch.int64, device=dev)
+    for j in range(stride):
+        acc |= cell[:, :, j].to(torch.int64) << j
+    return to_i32(acc)
+
+
+def pack_corpus_words(chunks: torch.Tensor) -> torch.Tensor:
+    """``[B, L] uint8 -> [B, L/4] int32`` little-endian word pack: a
+    reinterpretation of the bytes (CPUs and CUDA devices are
+    little-endian), so no corpus-sized intermediate."""
+    return chunks.contiguous().view(torch.int32)
+
+
+def fused_phase_grid(
+    chunks: torch.Tensor,  # [B, L] uint8, (4*spc) | L
+    spc: int,  # corpus words per grid cell (stride // 4)
+    block_r: int = FUSED_BLOCK_R,
+) -> torch.Tensor:
+    """Corpus word phases in the fused kernel's padded grid layout,
+    stacked as one ``[spc, R_pad + 8, 128]`` int32 tensor: phase ``p``
+    holds word ``p`` of every grid cell, cells in row-major ``b * M + m``
+    order, zero-padded.  Resident-corpus callers compute it once per
+    corpus (``DeviceCorpus.fused_phases``)."""
+    B, L = chunks.shape
+    stride = 4 * spc
+    if L % stride:
+        raise ValueError("phase grid requires stride | L")
+    M = L // stride
+    n_grid = B * M
+    R = -(-n_grid // 128)
+    n_blocks = max(1, -(-R // block_r))
+    R_pad = n_blocks * block_r
+    wc = pack_corpus_words(chunks).reshape(n_grid, spc).T
+    out = torch.zeros((spc, (R_pad + 8) * 128), dtype=torch.int32,
+                      device=chunks.device)
+    out[:, :n_grid] = wc
+    return out.reshape(spc, R_pad + 8, 128)
+
+
+def filter_hits_sampled_vmem(
+    table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
+    words: torch.Tensor,  # [2**log2_words] int32 positional bloom
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    min_long_len: torch.Tensor,  # scalar int32 (0 disables the long path)
+    *,
+    q: int,
+    stride: int,
+    log2_rows: int,
+    salts: Tuple[int, ...],
+    pack: int,
+    log2_words: int,
+    fine_salts: Tuple[int, ...],
+    shorts: Tuple[bytes, ...],
+    capacity: int,
+    cap_coarse: int,
+    prefix_words=None,  # [2**prefix_log2 / 32] int32 bit bloom, or None
+    prefix_salts: Tuple[int, ...] = (),
+    prefix_log2: int = 0,
+    prefix_len: int = 0,
+    phase_g=None,  # precomputed fused_phase_grid output (resident corpus)
+):
+    """Two-stage sampled filter through the fused kernel.
+
+    Stage 1 is one :func:`~.filter_cuda.fused_sampled_extract` launch
+    (``cap_coarse`` = survivors per block column).  Stage 2 refines the
+    slots: in the kernel against a small prefix bloom, else by one
+    prefix-bloom bit probe per single-alignment slot, else (no prefix
+    plan) by a re-probe of the fine positional bloom.  Returns
+    ``(grid_idx [capacity] in slot order, INT32_MAX-padded, long_word,
+    short_word, n_final, n_coarse)``; retry bigger when either count
+    overflows."""
+    from .filter_cuda import fused_sampled_extract
+
+    B, L = chunks.shape
+    M = -(-L // stride)
+    if not (stride % 4 == 0 and L % stride == 0 and cap_coarse <= 128):
+        raise NotImplementedError(
+            "the per-row VMEM filter (alignment gate failed: stride % 4, "
+            "stride does not divide L, or cap_coarse > 128) is not ported "
+            "yet: ROADMAP queue 1 item 6"
+        )
+    dev = chunks.device
+    prefix_on = (
+        prefix_words is not None
+        and stride <= 16
+        and 4 <= prefix_len <= 20
+        and bool(prefix_salts)
+    )
+    spc = stride // 4
+    block_r = FUSED_BLOCK_R
+    n_grid = B * M
+    R = -(-n_grid // 128)
+    n_blocks = max(1, -(-R // block_r))
+    R_pad = n_blocks * block_r
+    sw_g = None
+    if shorts:
+        sw = _short_start_words(chunks, lengths, shorts, stride, M)
+        sw_g = torch.zeros(R_pad * 128, dtype=torch.int32, device=dev)
+        sw_g[:n_grid] = sw.reshape(-1)
+        sw_g = sw_g.reshape(R_pad, 128)
+    if phase_g is None:
+        phase_g = fused_phase_grid(chunks, spc=spc, block_r=block_r)
+    mll = min_long_len.to(torch.int32).reshape(1, 1)
+    mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
+    # small prefix blooms (<= 32 [*, 128] rows) are probed in the kernel
+    pb_rows = (1 << prefix_log2) // 32 // 128 if prefix_on else 0
+    inkernel_refine = prefix_on and 0 < pb_rows <= 32
+    r_s, w_s, swo_s, h_s, cnt = fused_sampled_extract(
+        table, phase_g, sw_g, mll,
+        salts=tuple(salts), log2_rows=log2_rows, pack=pack, q=q, spc=spc,
+        mpr=mpr, block_r=block_r, n_grid=n_grid,
+        l16=prefix_len if prefix_on else 0, prefix_on=prefix_on,
+        prefix_table=(
+            prefix_words.reshape(pb_rows, 128) if inkernel_refine else None
+        ),
+        prefix_salts=tuple(prefix_salts) if inkernel_refine else (),
+        prefix_log2=prefix_log2 if inkernel_refine else 0,
+    )
+
+    if inkernel_refine:
+        long_ok = w_s != 0  # refinement already applied in the kernel
+    elif prefix_on:
+        # stage 2a: one prefix-bloom bit probe per single-alignment slot
+        ok = None
+        for salt in prefix_salts:
+            slot = mul32(u32(h_s) ^ salt, KNUTH) >> (32 - prefix_log2)
+            word = prefix_words[slot >> 5].to(torch.int64)
+            bit = (word >> (slot & 31)) & 1
+            ok = bit if ok is None else (ok & bit)
+        v = w_s & ((1 << stride) - 1)
+        single = (v != 0) & ((v & (v - 1)) == 0)
+        long_ok = (w_s != 0) & (torch.logical_not(single) | (ok == 1))
+    else:
+        # stage 2: fine re-probe of the positional bloom (h_s = code)
+        wf = None
+        for salt in fine_salts:
+            widx = mul32(u32(h_s) ^ salt, KNUTH) >> (32 - log2_words)
+            probe = words[widx]
+            wf = probe if wf is None else (wf & probe)
+        w_s = w_s & wf
+        long_ok = w_s != 0
+
+    nrows = n_blocks * mpr
+    blk = (torch.arange(nrows, dtype=torch.int32, device=dev) // mpr)[:, None]
+    lane = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
+    cell_s = (blk * block_r + r_s) * 128 + lane
+    alive = (r_s >= 0) & (long_ok | (swo_s != 0)) & (cell_s < n_grid)
+    slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
+    tot = nrows * 128
+    safe = torch.clamp(slot, max=tot - 1).long()
+    valid = slot < INT32_MAX
+    idx = torch.where(valid, cell_s.reshape(-1)[safe], INT32_MAX)
+    lw = torch.where(valid, w_s.reshape(-1)[safe], 0)
+    swo = torch.where(valid, swo_s.reshape(-1)[safe], 0)
+    # slot order (block-major), not cell-ascending: window verify treats
+    # slots independently and the host expansion re-orders
+    return idx, lw, swo, n_final, cnt.max()
+
+
+def _window_classes(byte_class, used_bytes, chunks, base, W):
+    """Byte classes of every window ``[base, base + W)`` (indices clamped
+    into the corpus; out-of-row positions are masked by the callers)."""
+    B, L = chunks.shape
+    j_idx = torch.arange(W, device=chunks.device)[None, :]
+    bidx = torch.clamp(base.long()[:, None] + j_idx, 0, B * L - 1)
+    byte = chunks.reshape(-1)[bidx]
+    return _classes(byte, byte_class, used_bytes)
+
+
+def _window_geometry(chunks, lengths, emit_from, grid_idx, stride, n_hits):
+    B, L = chunks.shape
+    M = -(-L // stride)
+    H = min(n_hits, grid_idx.shape[0])
+    grid_idx = grid_idx[:H]
+    active = grid_idx < INT32_MAX
+    g = torch.where(active, grid_idx, 0)
+    b = g // M
+    w0 = (g % M) * stride - (stride - 1)
+    base = b * L + w0
+    bl = b.long()
+    return grid_idx, H, active, w0, base, lengths[bl], emit_from[bl]
+
+
+def _emit_records(grid_idx, H, cnt, slots, capacity):
+    """Compact the per-window record slots (slot-major) into
+    ``(rec_cell, rec_pack, n_rec)``."""
+    over = cnt > VERIFY_KR
+    slots = slots + [torch.where(over, REC_OVERFLOW_J, 0).to(torch.int32)]
+    used = [cnt > k for k in range(VERIFY_KR)] + [over]
+    alive = torch.stack(used).reshape(-1)  # [KR+1, H] slot-major
+    slot_idx, n_rec = blocked_nonzero(alive, capacity)
+    tot = (VERIFY_KR + 1) * H
+    safe = torch.clamp(slot_idx, max=tot - 1).long()
+    valid = slot_idx < INT32_MAX
+    pk = torch.stack(slots).reshape(-1)
+    cells = grid_idx[safe % H]
+    rec_cell = torch.where(valid, cells, INT32_MAX)
+    rec_pack = torch.where(valid, pk[safe], 0)
+    return rec_cell, rec_pack, n_rec
+
+
+def _record_step(s_j, pos_j, valid_j, j, row_emit, final_start, cnt, slots):
+    fin = (s_j >= final_start) & valid_j & (pos_j >= row_emit)
+    pack = s_j * 32 + j
+    for k in range(VERIFY_KR):
+        slots[k] = torch.where(fin & (cnt == k), pack, slots[k])
+    return cnt + fin.to(torch.int32)
+
+
+def verify_windows_records(
+    table_flat: torch.Tensor,  # [S*C] int16/int32 dense transition table
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    emit_from: torch.Tensor,  # [B] int32
+    grid_idx: torch.Tensor,  # [>=n_hits] int32 b*M+m hits, INT32_MAX-padded
+    final_start: torch.Tensor,  # scalar int32
+    *,
+    n_classes: int,
+    stride: int,
+    win_len: int,  # <= 31 (REC_OVERFLOW_J is reserved)
+    capacity: int,
+    n_hits: int,
+):
+    """Exact window walk with match-record emission: one
+    ``(cell, state*32 + j)`` record per final position of each verified
+    window (up to ``VERIFY_KR``; more emit one ``REC_OVERFLOW_J``
+    sentinel for an exact host re-walk).  Returns ``(rec_cell [cap],
+    rec_pack [cap], n_rec)`` in slot order; retry when ``n_rec >
+    capacity``."""
+    grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
+        chunks, lengths, emit_from, grid_idx, stride, n_hits
+    )
+    W = win_len
+    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+    dev = chunks.device
+    state = torch.zeros(H, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(H, dtype=torch.int32, device=dev)
+    slots = [torch.zeros(H, dtype=torch.int32, device=dev)
+             for _ in range(VERIFY_KR)]
+    for j in range(W):
+        pos_j = w0 + j
+        valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+        cls_j = torch.where(valid_j, cls[:, j], 0)
+        state = table_flat[state.long() * n_classes + cls_j].to(torch.int32)
+        cnt = _record_step(state, pos_j, valid_j, j, row_emit, final_start,
+                           cnt, slots)
+    return _emit_records(grid_idx, H, cnt, slots, capacity)
+
+
+def verify_windows_records2(
+    table2_flat: torch.Tensor,  # [S * C * C] int32 packed 2-step entries
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    emit_from: torch.Tensor,  # [B] int32
+    grid_idx: torch.Tensor,  # [>=n_hits] int32 b*M+m hits, INT32_MAX-padded
+    final_start: torch.Tensor,  # scalar int32
+    *,
+    n_classes: int,
+    stride: int,
+    win_len: int,  # <= 31 (REC_OVERFLOW_J is reserved)
+    capacity: int,
+    n_hits: int,
+):
+    """:func:`verify_windows_records` in 2-class super-steps: the packed
+    table ``table2[s, c1*C + c2] = s2 | (s1 << 15)`` advances two window
+    positions per dependent gather, and the intermediate state ``s1``
+    rides in the entry's high bits so finals at both positions are
+    detected.  Requires ``S < 2**15``; positions outside ``[0, length)``
+    contribute class 0 exactly like the 1-step walk."""
+    grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
+        chunks, lengths, emit_from, grid_idx, stride, n_hits
+    )
+    W = win_len
+    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+    dev = chunks.device
+    smask = (1 << REC2_BITS) - 1
+    C2 = n_classes * n_classes
+    state = torch.zeros(H, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(H, dtype=torch.int32, device=dev)
+    slots = [torch.zeros(H, dtype=torch.int32, device=dev)
+             for _ in range(VERIFY_KR)]
+    for t in range(-(-W // 2)):
+        j1, j2 = 2 * t, 2 * t + 1
+        pos1 = w0 + j1
+        valid1 = (pos1 >= 0) & (pos1 < row_len) & active
+        c1 = torch.where(valid1, cls[:, j1], 0)
+        if j2 < W:
+            pos2 = w0 + j2
+            valid2 = (pos2 >= 0) & (pos2 < row_len) & active
+            c2 = torch.where(valid2, cls[:, j2], 0)
+        else:  # dead half-step: class 0, never emits
+            pos2, valid2, c2 = pos1, torch.zeros_like(valid1), torch.zeros_like(c1)
+        entry = table2_flat[
+            state.long() * C2 + c1.long() * n_classes + c2
+        ].to(torch.int32)
+        s1 = entry >> REC2_BITS
+        s2 = entry & smask
+        cnt = _record_step(s1, pos1, valid1, j1, row_emit, final_start,
+                           cnt, slots)
+        if j2 < W:
+            cnt = _record_step(s2, pos2, valid2, j2, row_emit, final_start,
+                               cnt, slots)
+        state = s2
+    return _emit_records(grid_idx, H, cnt, slots, capacity)
+
+
+def records_chain_vmem(
+    vmem_table,
+    words,
+    prefix_words,
+    table_flat,  # dense [S*C], or the packed 2-step table with use_k2
+    byte_class,
+    used_bytes,
+    chunks,
+    lengths,
+    emit_from,
+    min_long_len,
+    final_start,
+    phase_g,  # fused_phase_grid output, or None
+    *,
+    q: int,
+    stride: int,
+    log2_rows: int,
+    salts: Tuple[int, ...],
+    pack: int,
+    log2_words: int,
+    fine_salts: Tuple[int, ...],
+    shorts: Tuple[bytes, ...],
+    cap_a: int,
+    cap_coarse: int,
+    prefix_salts: Tuple[int, ...],
+    prefix_log2: int,
+    prefix_len: int,
+    n_classes: int,
+    win_len: int,
+    cap_r: int,
+    compressed: bool = False,
+    use_k2: bool = False,
+):
+    """Fused filter + record verification.  Returns ``(rec_cell,
+    rec_pack, n_hits, n_rec, n_coarse)`` as device values (no host
+    fetch); retry bigger when a count exceeds its capacity."""
+    if compressed:
+        raise NotImplementedError(
+            "compressed-table record verify is not ported yet: "
+            "ROADMAP queue 1 item 7"
+        )
+    idx, _lw, _sw, n, nc = filter_hits_sampled_vmem(
+        vmem_table, words, chunks, lengths, min_long_len,
+        q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
+        log2_words=log2_words, fine_salts=fine_salts, shorts=shorts,
+        capacity=cap_a, cap_coarse=cap_coarse,
+        prefix_words=prefix_words if prefix_salts else None,
+        prefix_salts=prefix_salts, prefix_log2=prefix_log2,
+        prefix_len=prefix_len, phase_g=phase_g,
+    )
+    verify = verify_windows_records2 if use_k2 else verify_windows_records
+    rc, rp, nr = verify(
+        table_flat, byte_class, used_bytes, chunks, lengths, emit_from,
+        idx, final_start,
+        n_classes=n_classes, stride=stride, win_len=win_len,
+        capacity=cap_r, n_hits=cap_a,
+    )
+    return rc, rp, n, nr, nc

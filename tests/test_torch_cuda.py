@@ -1,0 +1,116 @@
+"""The port on a CUDA card: each kernel against its plain PyTorch version
+on the same CUDA tensors, and the serving path on the card against the
+same path on the CPU.
+
+These tests skip where no card is present.  The file imports no JAX, so on
+a machine with a card and without JAX it runs on its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import random
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import php_aho_corasick_tpu_torch as port  # noqa: E402
+from php_aho_corasick_tpu_torch.ops.filter_cuda import (  # noqa: E402
+    _fused_extract_torch,
+    fused_sampled_extract,
+)
+
+PREFIX_SALTS = (0x7F4A7C15, 0x94D049BB)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _salts(k):
+    return tuple((0x9E3779B9 * (2 * i + 1)) & 0xFFFFFFFF for i in range(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,log2_rows,pack,spc,shorts,prefix,mpr",
+    [
+        (3, 12, 1, 2, True, False, 16),
+        (8, 12, 4, 2, False, True, 24),  # the headline plan's shapes
+        (8, 12, 4, 2, True, True, 128),
+        (2, 13, 2, 4, True, True, 8),  # stride 16
+        (4, 12, 1, 8, False, False, 32),  # stride 32: bit 31 alignments
+        (4, 13, 1, 2, True, True, 16),  # 128 KiB of tables in shared memory
+        (8, 13, 1, 2, False, True, 24),  # 256 KiB: tables read from memory
+    ],
+)
+def test_kernel_matches_plain(cuda, k, log2_rows, pack, spc, shorts, prefix,
+                              mpr):
+    rng = np.random.default_rng(k * 100 + spc)
+    n_blocks = 5
+    R_pad = n_blocks * 1024
+    n_banks = (1 << log2_rows) // 128
+    dens = 0.5 ** (1.0 / k)
+    bits = rng.random((k * n_banks // pack, 128, 32)) < dens
+    table = (bits * (1 << np.arange(32, dtype=np.uint64))).sum(-1)
+    table = table.astype(np.uint32).view(np.int32)
+    phases = rng.integers(-(2**31), 2**31, (spc, R_pad + 8, 128),
+                          dtype=np.int64).astype(np.int32)
+    sw = (rng.integers(-(2**31), 2**31, (R_pad, 128), dtype=np.int64)
+          * (rng.random((R_pad, 128)) < 0.01)).astype(np.int32)
+    ptab = rng.integers(-(2**31), 2**31, (8, 128),
+                        dtype=np.int64).astype(np.int32)
+
+    def c(x):
+        return torch.from_numpy(x).to(cuda)
+
+    args = (c(table), c(phases), c(sw) if shorts else None,
+            torch.ones((1, 1), dtype=torch.int32, device=cuda))
+    n_grid = R_pad * 128 - 999
+    l16 = 12 if prefix else 0
+    pt = c(ptab) if prefix else None
+    ps = PREFIX_SALTS if prefix else ()
+    pl = 15 if prefix else 0
+    got = fused_sampled_extract(
+        *args, salts=_salts(k), log2_rows=log2_rows, pack=pack, q=9,
+        spc=spc, mpr=mpr, n_grid=n_grid, l16=l16, prefix_on=prefix,
+        prefix_table=pt, prefix_salts=ps, prefix_log2=pl,
+    )
+    want = _fused_extract_torch(
+        *args, _salts(k), log2_rows, pack, 9, spc, mpr, 1024, n_blocks,
+        n_grid, l16, prefix, prefix_table=pt, prefix_salts=ps,
+        prefix_log2=pl,
+    )
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[4].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_serving_path_card_equals_cpu(cuda):
+    rng = random.Random(11)
+    needles = sorted({bytes(rng.choice(b"abcdef") for _ in range(16))
+                      for _ in range(300)})
+    docs = [bytearray(rng.choice(b"abcdef") for _ in range(8192))
+            for _ in range(160)]
+    for _ in range(400):
+        d = docs[rng.randrange(len(docs))]
+        o = rng.randrange(8192 - 16)
+        d[o : o + 16] = needles[rng.randrange(len(needles))]
+    docs = [bytes(d) for d in docs]
+    specs = [{"id": i, "value": p} for i, p in enumerate(needles)]
+    cfg = port.ScanConfig(chunk_len=4096)
+    res = []
+    for device in (cuda, "cpu"):
+        m = port.Matcher(specs, cfg, device=device)
+        h = m.device_corpus(docs)
+        res.append(m.match_arrays_many([h, h]))
+    for a, b in zip(*res):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    assert res[0][0]["doc"].shape[0] >= 350

@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on CUDA unless the caller asks for the CPU."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "php_aho_corasick_tpu_torch"
+
+_PROBE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["php_aho_corasick_tpu"] = None
+import php_aho_corasick_tpu_torch as port
+
+pats = [b"abcdefabcdef", b"cdefabcdefab", b"xy"]
+m = port.Matcher([{"value": p} for p in pats],
+                 port.ScanConfig(engine="cascade", chunk_len=256),
+                 device="cpu")
+doc = b"ab" * 300 + pats[0] + b"c" * 50 + b"xy" + b"d" * 400
+res = m.match_arrays_many([m.device_corpus([doc, doc[::-1]])])[0]
+got = sorted(zip(res["doc"].tolist(), res["pos"].tolist(),
+                 res["pattern"].tolist()))
+want = [(0, 612, 0), (0, 664, 2)]
+assert got == want, got
+loaded = [n for n in sys.modules
+          if n == "jax" or n.startswith("jax.")
+          or n == "php_aho_corasick_tpu" or n.startswith("php_aho_corasick_tpu.")]
+assert not [n for n in loaded if sys.modules[n] is not None], loaded
+print("ok")
+"""
+
+
+def test_port_runs_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_no_jax_imports_in_sources():
+    pattern = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+php_aho_corasick_tpu\b(?!_)"
+        r"|from\s+php_aho_corasick_tpu\b(?!_))",
+        re.M,
+    )
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        src = f.read_text()
+        assert not pattern.search(src), f
+        assert not re.search(r"php_aho_corasick_tpu\.\w", src), f
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    import php_aho_corasick_tpu_torch as port
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.Matcher()
+    with pytest.raises(RuntimeError):
+        port.Matcher(device="cuda")
+    assert port.Matcher(device="cpu").device.type == "cpu"
