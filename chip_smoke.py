@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one CUDA card and check
+them.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build every CUDA kernel of the path from ``php_aho_corasick_tpu_torch/
-   csrc`` with nvcc for sm_90a (one nvcc per source, all started together);
+1. build every CUDA kernel from ``php_aho_corasick_tpu_torch/csrc`` with
+   nvcc for sm_90a (one nvcc per source, all started together);
 2. hold each kernel against its plain PyTorch version on the same CUDA
-   tensors, bit for bit: random tables with shorts and pack=1, then the
-   headline plan's real tables at the headline corpus shape;
-3. the main path at the reference benchmark's size (``bench.py``): 2048
+   tensors, bit for bit: random tables (the fused filter with shorts and
+   pack=1; the tile scan with int16 and int32 tables up to 4096 entries,
+   short and empty rows, ragged B and L), then each path's real tables at
+   its corpus shape;
+3. the cascade path at the reference benchmark's size (``bench.py``): 2048
    needles x 16 bytes over ``abcdef``, a 128 MiB resident corpus,
    ``Matcher.device_corpus`` -> ``match_arrays`` warm-up ->
    ``match_arrays_many([handle] * 12)`` timed with CUDA events; the
@@ -19,7 +22,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.cuda.set_sync_debug_mode("error")``;
 4. a 64 MiB corpus with needles planted at 1e-5 per byte: results equal a
    host numpy DFA walk on an 8 MiB slice, and every planted needle found;
-5. one JSON line of kernel timings, the card's name and power limit, and
+5. the tile path: ``benchmarks/probe_tile_tpu.py``'s 40 short patterns
+   over ``a-f`` (184 states x 7 classes) against 32 MiB of the same base
+   documents, ``device_corpus`` -> ``match_arrays`` timed with CUDA
+   events and counted as in 3; its records against the host walk (8 MiB),
+   the dense engine (all 32 MiB), a run at the default match capacity
+   (retries) and ``match_many``'s dicts; the PHP-parity functions on the
+   reference's test1 input;
+6. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -37,6 +47,8 @@ DOC_BYTES, N_BASE_DOCS = 8192, 256  # bench.py's 2 MiB pass
 HEADLINE_REPS = 64  # 128 MiB resident corpus
 DENSITY_REPS, DENSITY = 32, 1e-5  # 64 MiB, planted matches per byte
 BATCH = 12
+TILE_REPS, TILE_PASSES, DFA_PASSES = 16, 10, 2  # 32 MiB tile corpus
+TILE_CAPACITY = 1 << 19  # every final position of a pass in one scan
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 NON_TENSOR_OPS_PER_S = 67e12  # its fp32 rate outside the tensor cores
@@ -208,16 +220,16 @@ def phase_kernel_random(torch, fse, plain_fn):
     return int(got[4].sum().item()), err
 
 
-def trace_breakdown(torch, m, h, card, passes=2, top=8):
-    """Device time by kernel over ``passes`` traced passes of the main
-    path (torch.profiler), and the device's busy share of the traced
+def trace_breakdown(torch, run, card, passes=2, top=8):
+    """Device time by kernel over ``passes`` traced passes (``run(passes)``
+    runs them; torch.profiler), and the device's busy share of the traced
     window."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
-        m.match_arrays_many([h] * passes)
+        run(passes)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - w0) * 1e3
     rows = []
@@ -230,14 +242,16 @@ def trace_breakdown(torch, m, h, card, passes=2, top=8):
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         log("trace: device time not measured (the profiler saw no kernels)")
-        return
+        return None
     rows.sort(reverse=True)
+    n_launch = sum(r[1] for r in rows)
     log(f"trace of {passes} passes: device busy {busy:.3f} ms/pass of "
         f"{wall_ms / passes:.3f} ms/pass traced wall "
         f"({100 * busy * passes / wall_ms:.1f}% busy), "
-        f"{sum(r[1] for r in rows)} kernel launches/pass, on {card}")
+        f"{n_launch} kernel launches/pass, on {card}")
     for t, n, name in rows[:top]:
         log(f"  {t:9.4f} ms/pass  {n:5d}x  {name[:90]}")
+    return busy, n_launch
 
 
 def host_walk(auto, docs):
@@ -260,6 +274,236 @@ def host_walk(auto, docs):
     return arr[:, order]
 
 
+def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
+    """A random DFA of ``S`` states over ``U`` used bytes and ``[B, L]``
+    rows (a third of them empty, a quarter full), as the tile kernel's
+    CUDA arguments."""
+    C = U + 1
+    used = np.sort(rng.choice(256, U, replace=False)).astype(np.uint8)
+    byte_class = np.zeros(256, np.int32)
+    byte_class[used] = np.arange(1, U + 1)
+    pool = np.concatenate([used, rng.integers(0, 256, 3)])
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[::3] = 0
+    lengths[1::4] = L
+    c = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)  # noqa: E731
+    args = (c(rng.integers(0, S, S * C).astype(dtype)), c(byte_class),
+            c(used), c(rng.choice(pool, (B, L)).astype(np.uint8)),
+            c(rng.integers(0, S, B).astype(np.int32)), C)
+    return args, c(lengths) if with_lengths else None
+
+
+def phase_tile_random(torch, sst, plain_fn):
+    """The tile kernel against its plain version on random tables."""
+    rng = np.random.default_rng(1)
+    err = 0
+    cases = [
+        (512, 7, 300, 1000, np.int32, True),  # S*C = 4096, L % 64 != 0
+        (1024, 3, 1000, 2048, np.int16, True),  # S*C = 4096, int16
+        (90, 40, 129, 77, np.int16, True),  # > 32 used bytes, L % 16 != 0
+        (31, 2, 5, 64, np.int32, False),  # no lengths: carry = last column
+        (20, 3, 7, 0, np.int16, True),  # no bytes: carry = init
+    ]
+    for S, U, B, L, dtype, with_len in cases:
+        args, lt = tile_args(torch, rng, S, U, B, L, dtype, with_len)
+        got = sst(*args, lengths=lt)
+        want = plain_fn(*args, lt)
+        torch.cuda.synchronize()
+        err = max(err, compare(got, want, f"tile S={S} C={U + 1} [{B}, {L}] "
+                                          f"{np.dtype(dtype).name}"))
+    return len(cases), err
+
+
+def tile_bound_ms(table, chunks, n_classes):
+    """Least time for the tile scan of ``chunks``: the bytes read and the
+    int32 states written once (plus table, class map, init, lengths and
+    carry), against 3 operations per byte (class lookup, multiply-add,
+    table load) over the non-tensor rate."""
+    B, L = chunks.shape
+    n_bytes = B * L * (1 + 4) + B * 4 * 3 + table.numel() * 4 + 256 * 4
+    ops = 3 * B * L
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", n_bytes, ops)
+
+
+def probe_set():
+    """``benchmarks/probe_tile_tpu.py``'s automaton: 40 draws of 4-8 bytes
+    over ``a-f`` from ``default_rng(3)`` (sorted: a set's order varies
+    from run to run)."""
+    rng = np.random.default_rng(3)
+    return sorted({
+        bytes(rng.integers(97, 103, rng.integers(4, 9)).astype(np.uint8))
+        for _ in range(40)
+    })
+
+
+#: the reference's tests/test1.phpt patterns and expected records
+TEST1_PATTERNS = [
+    {"key": "ab", "value": "alfa"},
+    {"key": "ac", "value": "beta"},
+    {"key": "ad", "value": "gamma", "aux": [1]},
+    {"key": "ae", "value": "delta"},
+    {"id": 0, "value": "zeta"},
+    {"key": "ag", "value": "omega"},
+    {"value": "lfa"},
+]
+TEST1_EXPECT = [
+    {"pos": 14, "key": "ad", "aux": [1], "start_postion": 9, "value": "gamma"},
+    {"pos": 19, "keyIdx": 0, "start_postion": 15, "value": "zeta"},
+    {"pos": 24, "key": "ag", "start_postion": 19, "value": "omega"},
+    {"pos": 28, "key": "ab", "start_postion": 24, "value": "alfa"},
+    {"pos": 28, "start_postion": 25, "value": "lfa"},
+]
+
+
+def phase_tile_path(torch, base, card, sst, plain_fn):
+    """The tile path at 32 MiB: route, timed passes, kernel against its
+    bound, where the pass time goes, and the records against the host
+    walk, the dense engine, the default capacity and ``match_many``."""
+    from php_aho_corasick_tpu_torch import (
+        Matcher, ScanConfig, ahocorasick_init, ahocorasick_match,
+    )
+    from php_aho_corasick_tpu_torch.ops.matches import expand_matches_arrays
+    from php_aho_corasick_tpu_torch.ops.scan_torch import compact_final_states
+
+    pats = probe_set()
+    specs = [{"id": i, "value": p} for i, p in enumerate(pats)]
+    m = Matcher(specs, ScanConfig(backend="device",
+                                  match_capacity=TILE_CAPACITY),
+                device=DEVICE)
+    auto = m.automaton
+    docs = [row.tobytes() for row in base] * TILE_REPS
+    total = sum(map(len, docs))
+    engine = m._pick_engine(total)
+    assert engine == "tile", f"probe set routed to {engine!r}"
+    h = m.device_corpus(docs)
+    B, L = h.chunks_d.shape
+    log(f"tile path: {len(pats)} patterns, S={auto.n_states} "
+        f"C={auto.n_classes} (S*C={auto.n_states * auto.n_classes}), "
+        f"cascade plan {m.cascade_model.plan.mode}, engine {engine}, "
+        f"{total / 2**20:.0f} MiB in rows [{B}, {L}]")
+    warm = m.match_arrays(h)
+
+    # the path, counted and timed
+    sst.launches = 0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(TILE_PASSES):
+        res = m.match_arrays(h)
+    e1.record()
+    torch.cuda.synchronize()
+    launches = sst.launches
+    ms = e0.elapsed_time(e1) / TILE_PASSES
+    assert launches >= TILE_PASSES, f"tile kernel launched {launches} times"
+    for key in res:
+        assert np.array_equal(res[key], warm[key]), key
+    n_rec = res["doc"].shape[0]
+    log(f"tile path: match_arrays(handle) x {TILE_PASSES}: {ms:.3f} ms/pass "
+        f"by CUDA events, {total / ms / 1e6:.3f} GB/s, {n_rec} matches/pass, "
+        f"kernel launches {launches}, on {card}")
+    trace_breakdown(torch, lambda n: [m.match_arrays(h) for _ in range(n)],
+                    card)
+
+    # the kernel on the probe table at this shape, against plain and bound
+    tm = m.tile_model
+    dev = tm.device_arrays
+    init = torch.zeros((B,), dtype=torch.int32, device=DEVICE)
+    args = (dev["table_flat"], dev["byte_class"], dev["used_bytes"],
+            h.chunks_d, init, auto.n_classes)
+    got = sst(*args, lengths=h.lengths_d)
+    want = plain_fn(*args, h.lengths_d)
+    torch.cuda.synchronize()
+    err = compare(got, want, "tile kernel, probe table, 32 MiB")
+    k_ms = cuda_ms(lambda: sst(*args, lengths=h.lengths_d), 20)
+    p_ms = cuda_ms(lambda: plain_fn(*args, h.lengths_d), 3)
+    b_ms, b_by, b_bytes, b_ops = tile_bound_ms(dev["table_flat"], h.chunks_d,
+                                              auto.n_classes)
+    states = got[0]
+    c_ms = cuda_ms(lambda: compact_final_states(
+        states, h.lengths_d, h.emit_from_d, dev["final_start"],
+        TILE_CAPACITY), 10)
+    idx, sts, n_d = compact_final_states(states, h.lengths_d, h.emit_from_d,
+                                         dev["final_start"], TILE_CAPACITY)
+    n = int(n_d)
+    t0 = time.perf_counter()
+    flat = torch.cat([idx[:n], sts[:n]]).cpu().numpy()
+    f_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    expand_matches_arrays(auto, h.packed, flat[:n], flat[n:], n)
+    x_ms = (time.perf_counter() - t0) * 1e3
+    log(f"scan_states_tile at [{B}, {L}]: {k_ms:.4f} ms (plain {p_ms:.3f} "
+        f"ms, bound {b_ms:.4f} ms by {b_by}: {b_bytes} bytes, {b_ops} ops) "
+        f"on {card}")
+    log(f"tile pass parts: kernel {k_ms:.4f} ms, compaction {c_ms:.4f} ms "
+        f"(device), fetch of {n} positions {f_ms:.3f} ms, host expansion "
+        f"{x_ms:.3f} ms (host clock), on {card}")
+
+    # records: host walk on 8 MiB, the dense engine on all, default capacity
+    n_slice = min((8 << 20) // DOC_BYTES, len(docs))
+    ref = host_walk(auto, np.frombuffer(b"".join(docs[:n_slice]), np.uint8)
+                    .reshape(n_slice, DOC_BYTES))
+    sel = res["doc"] < n_slice
+    got_arr = np.stack([res["doc"][sel], res["pos"][sel], res["pattern"][sel]])
+    assert np.array_equal(got_arr, ref), "tile: 8 MiB slice != host walk"
+    md = Matcher(specs, ScanConfig(backend="device", engine="dfa",
+                                   match_capacity=TILE_CAPACITY),
+                 device=DEVICE)
+    rd = md.match_arrays(h)
+    for key in res:
+        assert np.array_equal(rd[key], res[key]), f"dfa differs: {key}"
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(DFA_PASSES):
+        md.match_arrays(h)
+    e1.record()
+    torch.cuda.synchronize()
+    d_ms = e0.elapsed_time(e1) / DFA_PASSES
+    log(f"dense engine: match_arrays(handle) equals the tile path, "
+        f"{d_ms:.3f} ms/pass by CUDA events ({total / d_ms / 1e6:.3f} GB/s), "
+        f"on {card}")
+    trace_breakdown(torch, lambda n: [md.match_arrays(h) for _ in range(n)],
+                    card, passes=1)
+    mc = Matcher(specs, ScanConfig(backend="device"), device=DEVICE)
+    rc = mc.match_arrays(h)
+    for key in res:
+        assert np.array_equal(rc[key], res[key]), f"retry differs: {key}"
+    recs = m.match_many(h)
+    flat_recs = [(d, r["pos"], r["keyIdx"]) for d, rs in enumerate(recs)
+                 for r in rs]
+    assert flat_recs == list(zip(res["doc"].tolist(), res["pos"].tolist(),
+                                 res["pattern"].tolist())), "match_many"
+    log(f"tile records: 8 MiB slice equals the host walk ({ref.shape[1]} "
+        f"matches); dense engine and default capacity "
+        f"({mc.config.match_capacity}) equal on 32 MiB; match_many's "
+        f"{len(flat_recs)} dicts equal the arrays")
+
+    # the PHP-parity functions on the card
+    c = ahocorasick_init(TEST1_PATTERNS, device=DEVICE)
+    c.config = ScanConfig(backend="device")
+    got1 = ahocorasick_match("alFABETA gamma zetaomegaalfa!", c)
+    assert c.device.type == DEVICE and c.stats.last_engine == "tile"
+    assert got1 == TEST1_EXPECT and all(
+        list(a) == list(b) for a, b in zip(got1, TEST1_EXPECT)), got1
+    log("compat: ahocorasick_match on test1's input equals its expectation "
+        "(tile engine, on the card)")
+    return {
+        "name": "scan_states_tile",
+        "route": "cuda",
+        "source": "php_aho_corasick_tpu_torch/csrc/scan_states_tile.cu",
+        "replaces": "php_aho_corasick_tpu/ops/scan_pallas.py:112",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 def main():
     import torch
 
@@ -270,6 +514,10 @@ def main():
     from php_aho_corasick_tpu_torch.ops import _build
     from php_aho_corasick_tpu_torch.ops.filter_cuda import (
         fused_sampled_extract as fse,
+    )
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import (
+        _scan_states_tile_torch,
+        scan_states_tile as sst,
     )
 
     card = card_line()
@@ -289,6 +537,9 @@ def main():
     n_hits, err1 = phase_kernel_random(torch, fse, plain)
     log(f"kernel check 1 (random tables, shorts, pack=1): bit-equal, "
         f"{n_hits} hits")
+    n_cases, tile_err = phase_tile_random(torch, sst, _scan_states_tile_torch)
+    log(f"kernel check 3 (scan_states_tile, {n_cases} random tables): "
+        f"bit-equal")
 
     # 3. main path setup at the headline size
     needles, base = workload()
@@ -351,7 +602,7 @@ def main():
         f"{res[0]['doc'].shape[0]} matches/pass, kernel launches "
         f"{launches}, on {card}")
 
-    trace_breakdown(torch, m, h, card)
+    trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card)
 
     # the dispatch half must not synchronise with the host
     fse.launches = 0
@@ -397,7 +648,12 @@ def main():
         f"{len(intact)} intact all found, {rd['doc'].shape[0]} matches; "
         f"8 MiB slice equals the host walk ({ref.shape[1]} matches)")
 
-    # 5. timings and the last line
+    # 5. the tile path
+    tile_kernel = phase_tile_path(torch, base, card, sst,
+                                  _scan_states_tile_torch)
+    tile_kernel["max_abs_err"] = max(tile_kernel["max_abs_err"], tile_err)
+
+    # 6. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",
@@ -410,7 +666,7 @@ def main():
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-    }]
+    }, tile_kernel]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
-"""The :class:`Matcher` of the PyTorch port — the resident-corpus serving
-path.
+"""The :class:`Matcher` of the PyTorch port.
 
 Counterpart of the JAX package's ``api.py``, for what this port covers so
 far: the build lifecycle (``add_patterns`` / ``finalize`` / ``close``),
-:meth:`Matcher.device_corpus` and the columnar scans
-(:meth:`Matcher.match_arrays`, :meth:`Matcher.match_arrays_many`) through
-the sampled cascade's records chain.  Results are the reference's
-columnar arrays: ``doc``, ``pos`` (exclusive byte end), ``start_postion``
-(sic — the reference API's field name) and ``pattern`` (index into the
-accepted patterns), in reference emission order.
+the reference-schema match records (:meth:`Matcher.match`,
+:meth:`Matcher.match_many`), :meth:`Matcher.device_corpus` and the
+columnar scans (:meth:`Matcher.match_arrays`,
+:meth:`Matcher.match_arrays_many`).  Columnar results are ``doc``,
+``pos`` (exclusive byte end), ``start_postion`` (sic — the reference
+API's field name) and ``pattern`` (index into the accepted patterns), in
+reference emission order.
+
+Scans go to one of three engines (:meth:`Matcher._pick_engine`): the
+sampled cascade's records chain for large scans, the tile engine
+(``csrc/scan_states_tile.cu``) for small automata, and the dense DFA
+otherwise; scans of at most ``host_scan_threshold`` bytes run on the host
+(``backend="auto"``).
 
 A matcher runs on one device: CUDA unless the caller passes
 ``device="cpu"``.  Where the path meets a mode this port does not have
@@ -27,8 +33,9 @@ from .config import DEFAULT_CONFIG, ScanConfig
 from .core import TrieBuilder, compile_trie, empty_automaton
 from .errors import AddStatus, AhoError, warn
 from .models.dense_dfa import DenseDfaModel
-from .ops.matches import PackedRows, pack_documents
+from .ops.matches import PackedRows, expand_matches_arrays, pack_documents
 from .patterns import Pattern, parse_batch
+from .utils import next_pow2 as _next_pow2
 
 Haystack = Union[str, bytes, bytearray]
 
@@ -131,9 +138,16 @@ def _as_bytes(h: Haystack) -> bytes:
     return bytes(h)
 
 
+def _first_groups(results: List[List[dict]]) -> List[List[dict]]:
+    """Each document's records of its first matching end position only
+    (the reference's callback-return abort, ``php_ahocorasick.c:588``)."""
+    return [
+        [r for r in recs if r["pos"] == recs[0]["pos"]] for recs in results
+    ]
+
+
 class Matcher:
-    """Multi-pattern byte matcher served by the sampled cascade on one
-    device."""
+    """Multi-pattern byte matcher on one device."""
 
     def __init__(
         self,
@@ -152,6 +166,7 @@ class Matcher:
         self._model = None
         self._used_bytes: set = set()
         self._cascade = _UNSET
+        self._tile = _UNSET
         self.stats = ScanStats()
         self._finalized = False
         self._valid = True
@@ -251,28 +266,55 @@ class Matcher:
             )
         return self._cascade
 
+    @property
+    def tile_model(self):
+        """Shared-memory tile DFA model (models/tile_dfa.py); ``None``
+        when the automaton exceeds the tile budget."""
+        if self._tile is _UNSET:
+            from .models.tile_dfa import TileDfaModel, tile_eligible
+
+            self._tile = (
+                TileDfaModel(self.automaton, self.config, self.device)
+                if tile_eligible(self.automaton)
+                else None
+            )
+        return self._tile
+
     def _pick_engine(self, total_payload: int) -> str:
-        """Engine of a scan: the sampled cascade, the only engine this
-        port has.  Any other choice raises."""
+        """Engine of a device scan.  A forced engine is taken as given
+        (``"kgram"`` is not ported); ``auto`` takes the sampled cascade
+        for scans of at least ``cascade_min_bytes``, else the tile engine
+        when the automaton fits it, else the dense DFA.  The same rule
+        holds on every device, so the CPU runs the card's route."""
         cfg = self.config
-        if cfg.engine in ("dfa", "kgram", "tile"):
-            item = {"dfa": 5, "kgram": 7, "tile": 8}[cfg.engine]
-            raise _not_ported(f"the {cfg.engine!r} engine", item)
+        if cfg.engine == "kgram":
+            raise _not_ported("the 'kgram' engine", 7)
+        if cfg.engine == "dfa":
+            return "dfa"
+        if cfg.engine == "tile":
+            if self.tile_model is None:
+                raise ValueError(
+                    "tile engine forced but automaton exceeds the tile budget"
+                )
+            return "tile"
         if cfg.engine == "cascade":
             if self.cascade_model is None:
                 raise ValueError(
                     "cascade engine forced but pattern set is ineligible"
                 )
             return "cascade"
-        if (
-            total_payload >= cfg.cascade_min_bytes
-            and self.cascade_model is not None
-        ):
-            return "cascade"
-        raise _not_ported(
-            "the dense DFA engine (scans under cascade_min_bytes, or "
-            "pattern sets the cascade cannot plan)", 5
+        cm = (
+            self.cascade_model
+            if total_payload >= cfg.cascade_min_bytes
+            else None
         )
+        if cm is not None and cm.plan.mode == "sampled":
+            return "cascade"
+        if self.tile_model is not None:
+            return "tile"
+        # the reference takes the k-gram engine here for scans of at least
+        # kgram_min_bytes; its records are the dense engine's
+        return "dfa"
 
     # ------------------------------------------------------------ scans
 
@@ -283,13 +325,78 @@ class Matcher:
         if not self._finalized:
             self.finalize()
 
+    def match(
+        self,
+        haystack: Haystack,
+        find_all: bool = True,
+        backend: Optional[str] = None,
+    ) -> List[dict]:
+        """Scan one haystack; returns reference-parity match record dicts.
+
+        Automaton state is reset per call (a pattern split across two
+        consecutive ``match`` calls does NOT match: the reference forces
+        ``keep=0``, ``php_ahocorasick.c:745``).  With ``find_all=False``, returns only
+        the records of the first matching end position
+        (``php_ahocorasick.c:588``)."""
+        return self.match_many([haystack], find_all=find_all, backend=backend)[0]
+
+    def match_many(
+        self,
+        haystacks: Union[Sequence[Haystack], DeviceCorpus],
+        find_all: bool = True,
+        backend: Optional[str] = None,
+    ) -> List[List[dict]]:
+        """Scan many haystacks; one record list per haystack.  Accepts a
+        :class:`DeviceCorpus` handle in place of the haystack sequence.
+        ``backend`` overrides ``config.backend`` for this call."""
+        self._check_open()
+        if isinstance(haystacks, DeviceCorpus):
+            dc = haystacks
+            results = [[] for _ in range(dc.n_docs)]
+            if self._auto.n_patterns == 0:
+                return results
+            engine, docs_a, ends_a, pids_a = self._scan_handle_arrays(dc)
+            self._emit_records(docs_a, ends_a, pids_a, results)
+            self.stats.record(
+                engine, str(self.device), dc.total_bytes,
+                int(docs_a.shape[0]),
+            )
+            return results if find_all else _first_groups(results)
+        docs = [_as_bytes(h) for h in haystacks]
+        results: List[List[dict]] = [[] for _ in docs]
+        if self._auto.n_patterns == 0 or not docs:
+            return results
+        be = backend or self.config.backend
+        total = sum(len(d) for d in docs)
+        if be == "host" or (
+            be == "auto" and total <= self.config.host_scan_threshold
+        ):
+            self._scan_host(docs, results)
+            self.stats.record("scalar", "host", total, sum(map(len, results)))
+        else:
+            # oversized corpora go in several launches (documents are
+            # independent, so this is exact)
+            engine = "-"
+            for g in self._launch_groups(docs):
+                engine, docs_a, ends_a, pids_a = self._scan_handle_arrays(
+                    self._upload([docs[i] for i in g])
+                )
+                sub = [[] for _ in g]
+                self._emit_records(docs_a, ends_a, pids_a, sub)
+                for i, r in zip(g, sub):
+                    results[i] = r
+            self.stats.record(
+                engine, str(self.device), total, sum(map(len, results))
+            )
+        return results if find_all else _first_groups(results)
+
     def device_corpus(
         self, haystacks: Sequence[Haystack], shard: Optional[bool] = None
     ) -> DeviceCorpus:
         """Pack + upload a corpus once, returning a resident
-        :class:`DeviceCorpus` accepted by :meth:`match_arrays` and
-        :meth:`match_arrays_many`.  ``shard=True`` (rows over several
-        devices) is not ported."""
+        :class:`DeviceCorpus` accepted by :meth:`match_many`,
+        :meth:`match_arrays` and :meth:`match_arrays_many`.
+        ``shard=True`` (rows over several devices) is not ported."""
         if not self._valid:
             warn("device_corpus on a closed matcher")
             raise StateError("matcher is closed")
@@ -305,6 +412,11 @@ class Matcher:
                 f"max_launch_bytes={self.config.max_launch_bytes}; "
                 "split into multiple handles"
             )
+        return self._upload(docs)
+
+    def _upload(self, docs: List[bytes]) -> DeviceCorpus:
+        """Pack ``docs`` into halo-overlapped rows and copy them to the
+        device."""
         halo = max(self._auto.max_len - 1, 0)
         packed = pack_documents(
             docs, self._pack_chunk_len(), halo, self.config.batch_pad,
@@ -316,7 +428,8 @@ class Matcher:
 
         return DeviceCorpus(
             packed, put(packed.chunks), put(packed.lengths),
-            put(packed.emit_from), len(docs), total, self.config.chunk_len,
+            put(packed.emit_from), len(docs), sum(map(len, docs)),
+            self.config.chunk_len,
         )
 
     def _pack_chunk_len(self) -> int:
@@ -350,13 +463,50 @@ class Matcher:
             )
 
     def _scan_handle_arrays(self, dc: DeviceCorpus):
+        """Engine dispatch over a resident corpus handle; returns
+        ``(engine, doc_ids, end_positions, pattern_ids)`` in reference
+        emission order."""
         self._check_handle(dc)
-        self._pick_engine(dc.total_bytes)
-        cm = self.cascade_model
-        return cm.run_arrays(
-            dc.packed, self.config.match_capacity,
-            dev_inputs=dc.dev_inputs_for(cm),
+        engine = self._pick_engine(dc.total_bytes)
+        capacity = self.config.match_capacity
+        if engine == "cascade":
+            cm = self.cascade_model
+            arrays = cm.run_arrays(
+                dc.packed, capacity, dev_inputs=dc.dev_inputs_for(cm)
+            )
+            return ("cascade",) + tuple(arrays)
+        model = self.tile_model if engine == "tile" else self._model
+        while True:
+            idx, sts, n, _ = model.scan_compact_device(
+                dc.chunks_d, dc.lengths_d, dc.emit_from_d, None, capacity
+            )
+            n = int(n)
+            if n <= capacity:
+                break
+            capacity = _next_pow2(n)
+        # one fetch of the occupied prefix of both buffers
+        flat = torch.cat([idx[:n], sts[:n]]).cpu().numpy()
+        arrays = expand_matches_arrays(
+            self._auto, dc.packed, flat[:n], flat[n:], n
         )
+        return (engine,) + tuple(arrays)
+
+    def _launch_groups(self, docs: List[bytes]) -> List[List[int]]:
+        """Document indices cut into groups of at most
+        ``max_launch_bytes`` (a larger document is a group of its own)."""
+        limit = self.config.max_launch_bytes
+        groups: List[List[int]] = []
+        group: List[int] = []
+        group_bytes = 0
+        for i, d in enumerate(docs):
+            if group and group_bytes + len(d) > limit:
+                groups.append(group)
+                group, group_bytes = [], 0
+            group.append(i)
+            group_bytes += len(d)
+        if group:
+            groups.append(group)
+        return groups
 
     def match_arrays(
         self,
@@ -365,41 +515,85 @@ class Matcher:
     ) -> dict:
         """Columnar scan output: ``{"doc", "pos", "start_postion",
         "pattern"}`` int64 arrays in reference emission order.  A
-        document list is packed and uploaded (:meth:`device_corpus`, in
-        groups of at most ``max_launch_bytes``) and scanned like a
-        handle."""
+        document list is scanned in groups of at most
+        ``max_launch_bytes``; with ``backend="auto"`` a group of at most
+        ``host_scan_threshold`` bytes runs on the host."""
         self._check_open()
         if isinstance(haystacks, DeviceCorpus):
             dc = haystacks
             if self._auto.n_patterns == 0:
                 z = np.zeros(0, np.int64)
-                return self._arrays_result(dc, z, z, z, find_all)
+                return self._arrays_result(dc.total_bytes, z, z, z, find_all)
+            _, docs_a, ends_a, pids_a = self._scan_handle_arrays(dc)
             return self._arrays_result(
-                dc, *self._scan_handle_arrays(dc), find_all=find_all
+                dc.total_bytes, docs_a, ends_a, pids_a, find_all
             )
         docs = [_as_bytes(h) for h in haystacks]
-        groups: List[List[int]] = []
-        group: List[int] = []
-        group_bytes = 0
-        for i, d in enumerate(docs):
-            if group and group_bytes + len(d) > self.config.max_launch_bytes:
-                groups.append(group)
-                group, group_bytes = [], 0
-            group.append(i)
-            group_bytes += len(d)
-        if group:
-            groups.append(group)
         parts = []
-        for g in groups:
-            res = self.match_arrays(
-                self.device_corpus([docs[i] for i in g]), find_all
+        if self._auto.n_patterns > 0:
+            parts = [self._group_arrays(docs, g)
+                     for g in self._launch_groups(docs)]
+        if parts:
+            docs_a, ends_a, pids_a = (
+                np.concatenate([p[k] for p in parts]) for k in range(3)
             )
-            res["doc"] = np.asarray(g, dtype=np.int64)[res["doc"]]
-            parts.append(res)
-        if not parts:
-            z = np.zeros(0, np.int64)
-            return {"doc": z, "pos": z, "start_postion": z, "pattern": z}
-        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        else:
+            docs_a = ends_a = pids_a = np.zeros(0, np.int64)
+        return self._arrays_result(
+            sum(map(len, docs)), docs_a, ends_a, pids_a, find_all
+        )
+
+    def _group_arrays(self, docs: List[bytes], group: List[int]):
+        """One launch group -> (global_doc_ids, ends, pids)."""
+        sub = [docs[i] for i in group]
+        total = sum(map(len, sub))
+        # backend="host" forces the host path at ANY size (same contract as
+        # match_many); "auto" routes small groups to the host scalar scan
+        if self.config.backend == "host" or (
+            self.config.backend == "auto"
+            and total <= self.config.host_scan_threshold
+        ):
+            from .ops.matches import csr_expand
+
+            auto = self._auto
+            dparts, eparts, pparts = [], [], []
+            for gi, d in zip(group, sub):
+                if not d:
+                    continue
+                positions, states, _ = self._scan_host_one(d)
+                rec_of, pids = csr_expand(auto, states.astype(np.int64))
+                dparts.append(np.full(pids.shape[0], gi, np.int64))
+                eparts.append(positions.astype(np.int64)[rec_of] + 1)
+                pparts.append(pids)
+            if not dparts:
+                z = np.zeros(0, np.int64)
+                return z, z, z
+            return (
+                np.concatenate(dparts),
+                np.concatenate(eparts),
+                np.concatenate(pparts),
+            )
+        _, docs_a, ends_a, pids_a = self._scan_handle_arrays(
+            self._upload(sub)
+        )
+        gmap = np.asarray(group, dtype=np.int64)
+        return gmap[docs_a], ends_a, pids_a
+
+    def _scan_host_one(self, doc: bytes):
+        data = np.frombuffer(doc, dtype=np.uint8)
+        return self._model.scan_host(data)
+
+    def _scan_host(self, docs: List[bytes], results: List[List[dict]]) -> None:
+        auto = self._auto
+        for d, doc in enumerate(docs):
+            if not doc:
+                continue
+            positions, states, _ = self._scan_host_one(doc)
+            out = results[d]
+            for t, s in zip(positions, states):
+                lo, hi = auto.emit_start[s], auto.emit_start[s + 1]
+                for pid in auto.emit_pats[lo:hi]:
+                    out.append(self._format(int(pid), int(t) + 1))
 
     def match_arrays_many(
         self,
@@ -409,22 +603,37 @@ class Matcher:
         """Pipelined columnar scan of several resident corpora: every
         device chain is enqueued back to back with no host fetch in
         between, and all occupancy counts come back in one trailing
-        fetch.  Returns one :meth:`match_arrays`-style dict per handle."""
+        fetch.  Falls back to sequential :meth:`match_arrays` when the
+        cascade records path is unavailable (recorded in
+        ``stats.records_fallbacks``).  Returns one :meth:`match_arrays`-
+        style dict per handle."""
         self._check_open()
         handles = list(handles)
         if not handles:
             return []
         if self._auto.n_patterns == 0:
             return [self.match_arrays(h, find_all) for h in handles]
+        cm = self.cascade_model
+        if cm is None or cm.plan.mode != "sampled" or not cm.records_ok:
+            # exact, but not silent: these sets serve at sequential speed
+            reason = (
+                "no cascade plan" if cm is None
+                else f"plan mode {cm.plan.mode!r}" if cm.plan.mode != "sampled"
+                else f"records gate: win_len={cm.win_len} (> 31) or "
+                     f"states={self._auto.n_states} (>= 2^26) or no "
+                     "device verify"
+            )
+            self.stats.record_records_fallback(reason)
+            return [self.match_arrays(h, find_all) for h in handles]
+        if not all(
+            self._pick_engine(h.total_bytes) == "cascade" for h in handles
+        ):
+            self.stats.record_records_fallback(
+                "engine auto-selection routed a handle off the cascade"
+            )
+            return [self.match_arrays(h, find_all) for h in handles]
         for h in handles:
             self._check_handle(h)
-            self._pick_engine(h.total_bytes)
-        cm = self.cascade_model
-        if cm.plan.mode != "sampled" or not cm.records_ok:
-            raise _not_ported(
-                f"serving without device records (plan {cm.plan.mode!r}, "
-                f"win_len={cm.win_len}, states={self._auto.n_states})", 6
-            )
         return self._records_batch_finish(
             *self._records_batch_dispatch(handles, cm), find_all
         )
@@ -475,11 +684,11 @@ class Matcher:
                 off += 2 * nr
                 arrays = cm.emit_records_arrays(h.packed, rc_np, rp_np, nr)
             results.append(
-                self._arrays_result(h, *arrays, find_all=find_all)
+                self._arrays_result(h.total_bytes, *arrays, find_all=find_all)
             )
         return results
 
-    def _arrays_result(self, dc, docs_a, ends_a, pids_a, find_all) -> dict:
+    def _arrays_result(self, n_bytes, docs_a, ends_a, pids_a, find_all) -> dict:
         if not find_all and docs_a.shape[0]:
             # keep only each doc's first end-position group
             _, first_idx = np.unique(docs_a, return_index=True)
@@ -491,8 +700,7 @@ class Matcher:
             )
         starts_a = ends_a - self._auto.pat_lens[pids_a]
         self.stats.record(
-            "arrays", str(self.device), dc.total_bytes,
-            int(docs_a.shape[0]),
+            "arrays", str(self.device), n_bytes, int(docs_a.shape[0]),
         )
         return {
             "doc": docs_a,
@@ -500,6 +708,50 @@ class Matcher:
             "start_postion": starts_a,  # sic: reference API typo
             "pattern": pids_a,
         }
+
+    def _format(self, pid: int, pos: int) -> dict:
+        p = self._patterns[pid]
+        rec: dict = {"pos": pos}
+        if p.key is not None:
+            rec["key"] = p.key
+        elif p.ident is not None:
+            rec["keyIdx"] = p.ident
+        if p.has_aux:
+            rec["aux"] = p.aux
+        rec["start_postion"] = pos - len(p.value)  # sic: reference API typo
+        rec["value"] = p.value_orig
+        return rec
+
+    def _emit_records(self, docs_a, ends_a, pids_a, results) -> None:
+        """Build reference-schema dicts from emission arrays.  Per-pattern
+        constant parts (key/keyIdx/aux items, length, original value) are
+        cached so the per-record work is one small dict build."""
+        protos = self._fmt_protos()
+        for i in range(docs_a.shape[0]):
+            tail, plen, value = protos[pids_a[i]]
+            pos = int(ends_a[i])
+            rec = {"pos": pos}
+            rec.update(tail)
+            rec["start_postion"] = pos - plen
+            rec["value"] = value
+            results[docs_a[i]].append(rec)
+
+    def _fmt_protos(self):
+        if getattr(self, "_protos", None) is None or len(self._protos) != len(
+            self._patterns
+        ):
+            protos = []
+            for p in self._patterns:
+                tail = {}
+                if p.key is not None:
+                    tail["key"] = p.key
+                elif p.ident is not None:
+                    tail["keyIdx"] = p.ident
+                if p.has_aux:
+                    tail["aux"] = p.aux
+                protos.append((tail, len(p.value), p.value_orig))
+            self._protos = protos
+        return self._protos
 
     # ------------------------------------------------------------ teardown
 

@@ -196,9 +196,9 @@ def _fused_extract_torch(
     return r_s, w_s, swo_s, h_s, cnt
 
 
-def _check(name, t, shape, device):
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+def _check(name, t, shape, device, dtype=torch.int32):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")

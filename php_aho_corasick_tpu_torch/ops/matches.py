@@ -21,7 +21,7 @@ Bridges variable-length user haystacks and the fixed-shape device kernels in
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -146,3 +146,56 @@ def csr_expand(
     first_out = np.concatenate(([0], np.cumsum(cnt)[:-1]))
     offs = np.repeat(starts - first_out, cnt) + np.arange(total)
     return rec_of, auto.emit_pats[offs].astype(np.int64)
+
+
+def expand_matches_arrays(
+    auto: CompiledAutomaton,
+    packed: PackedRows,
+    match_idx: np.ndarray,  # [capacity] int32, INT32_MAX-padded, ascending
+    match_state: np.ndarray,  # [capacity] int32
+    n_matches: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fully vectorized expansion of the compacted device output into
+    ``(docs [N], end_pos [N], pids [N])`` arrays in reference emission
+    order (ascending end position; within one end the state's own longest
+    pattern first — the CSR rows are stored in that order).
+
+    ``end_pos`` is the *exclusive* byte end offset within the document —
+    the reference's ``pos`` field (``php_ahocorasick.c:555-560``).
+    """
+    if n_matches == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z
+    L = packed.row_len
+    idx = match_idx[:n_matches]
+    sts = match_state[:n_matches].astype(np.int64)
+    rows = idx // L
+    ts = idx % L
+    end_pos = packed.global_off[rows] + ts + 1
+    docs = packed.doc_id[rows].astype(np.int64)
+    rec_of, pids = csr_expand(auto, sts)
+    return docs[rec_of], end_pos[rec_of], pids
+
+
+def expand_matches(
+    auto: CompiledAutomaton,
+    packed: PackedRows,
+    match_idx: np.ndarray,
+    match_state: np.ndarray,
+    n_matches: int,
+) -> Iterator[Tuple[int, int, np.ndarray]]:
+    """Iterator facade over :func:`expand_matches_arrays` — yields
+    ``(doc, end_pos, pattern_ids)`` per final position, in order."""
+    if n_matches == 0:
+        return
+    L = packed.row_len
+    idx = match_idx[:n_matches]
+    sts = match_state[:n_matches]
+    rows = idx // L
+    ts = idx % L
+    end_pos = packed.global_off[rows] + ts + 1
+    docs = packed.doc_id[rows]
+    starts = auto.emit_start[sts]
+    ends = auto.emit_start[sts + 1]
+    for i in range(n_matches):
+        yield int(docs[i]), int(end_pos[i]), auto.emit_pats[starts[i] : ends[i]]

@@ -1,11 +1,19 @@
-"""Device scan primitives in PyTorch: byte classification and the
-fixed-capacity compaction every cascade stage ends with.
+"""Device scan primitives in PyTorch: byte classification, the dense
+DFA walk and the fixed-capacity compaction every scan ends with.
 
-Counterpart of the JAX package's ``ops/scan_jax.py`` (only the pieces the
-resident-corpus records path runs).  Everything here is plain tensor code
-that stays on the tensors' device and never synchronises with the host:
-compaction uses ``torch.nonzero_static``, whose output shape is fixed by
-``size`` (plain ``torch.nonzero`` has to ask the device for its count).
+Counterpart of the JAX package's ``ops/scan_jax.py`` (the dense 1-gram
+engine and the pieces the resident-corpus records path runs).  Everything
+here is plain tensor code that stays on the tensors' device and never
+synchronises with the host: compaction uses ``torch.nonzero_static``,
+whose output shape is fixed by ``size`` (plain ``torch.nonzero`` has to
+ask the device for its count).
+
+The DFA walk advances every row one byte per step,
+
+    ``state[t+1] = table[state[t] * C + class(byte[t])]``
+
+as a time-major Python loop of one gather per byte column (the
+reference's ``lax.scan``); throughput comes from the batch of rows.
 """
 
 from __future__ import annotations
@@ -74,3 +82,92 @@ def blocked_nonzero(
     elem = safe_b[safe_f // blk] * blk + safe_f % blk
     idx = torch.where(fin < INT32_MAX, elem, INT32_MAX)
     return idx.to(torch.int32), n_true
+
+
+def _walk(table32, cls_t, init_state, n_classes):
+    """The time-major DFA loop: ``cls_t [L, B]`` classes, int32 table.
+    Returns ``(states [B, L] int32, last [B])``; ``states`` is a
+    transposed view of the ``[L, B]`` buffer the loop writes."""
+    L, B = cls_t.shape
+    states = torch.empty((L, B), dtype=torch.int32, device=cls_t.device)
+    s = init_state.to(torch.int32)
+    for t in range(L):
+        torch.index_select(
+            table32, 0, torch.add(cls_t[t], s, alpha=n_classes),
+            out=states[t],
+        )
+        s = states[t]
+    return states.t(), s
+
+
+def scan_states(
+    table_flat: torch.Tensor,  # [S*C] int16/int32
+    byte_class: torch.Tensor,  # [256] int32
+    used_bytes: torch.Tensor,  # [U] uint8 (sorted; classes 1..U)
+    chunks: torch.Tensor,  # [B, L] uint8
+    init_state: torch.Tensor,  # [B] int32
+    n_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the DFA over each row. Returns (states [B, L] int32, last [B])."""
+    cls = _classes(chunks, byte_class, used_bytes)
+    return _walk(
+        table_flat.to(torch.int32), cls.t().contiguous(), init_state,
+        n_classes,
+    )
+
+
+def carry_states(states, lengths, init_state):
+    """State after the last *valid* byte of each row (``states[b,
+    lengths[b]-1]``; ``init_state[b]`` for an empty row)."""
+    last_t = torch.clamp(lengths - 1, min=0).long()
+    carry = states.gather(1, last_t[:, None])[:, 0]
+    return torch.where(lengths > 0, carry, init_state.to(torch.int32))
+
+
+def scan_and_compact(
+    table_flat: torch.Tensor,
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    init_state: torch.Tensor,  # [B] int32
+    lengths: torch.Tensor,  # [B] int32 valid byte count per row
+    emit_from: torch.Tensor,  # [B] int32 first in-row position allowed to emit
+    final_start: torch.Tensor,  # scalar int32
+    n_classes: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Byte-at-a-time scan + device-side match compaction.
+
+    Returns ``(match_idx [capacity], match_state [capacity], n_matches,
+    carry_state [B])``: flattened ``b * L + t`` indices of final positions
+    in ascending order, INT32_MAX-padded; ``n_matches`` is the *true*
+    count (above ``capacity`` the caller retries).  Positions before
+    ``emit_from`` (halo) or past ``lengths`` do not emit; ``carry_state``
+    is the state after each row's last valid byte."""
+    states, _ = scan_states(
+        table_flat, byte_class, used_bytes, chunks, init_state, n_classes
+    )
+    carry = carry_states(states, lengths, init_state)
+    idx, match_state, n_matches = compact_final_states(
+        states, lengths, emit_from, final_start, capacity
+    )
+    return idx, match_state, n_matches, carry
+
+
+def compact_final_states(states, lengths, emit_from, final_start, capacity):
+    """Fixed-capacity compaction of final positions from a states matrix
+    (shared by the dfa and tile engines)."""
+    B, L = states.shape
+    t_idx = torch.arange(L, dtype=torch.int32, device=states.device)
+    final = (
+        (states >= final_start)
+        & (t_idx >= emit_from[:, None])
+        & (t_idx < lengths[:, None])
+    )
+    idx, n_matches = blocked_nonzero(final.reshape(-1), capacity)
+    safe = torch.clamp(idx, max=B * L - 1).long()
+    # 2-d gather: ``states`` may be a transposed view
+    match_state = torch.where(
+        idx < INT32_MAX, states[safe // L, safe % L], -1
+    )
+    return idx, match_state, n_matches

@@ -20,6 +20,10 @@ from php_aho_corasick_tpu_torch.ops.filter_cuda import (  # noqa: E402
     _fused_extract_torch,
     fused_sampled_extract,
 )
+from php_aho_corasick_tpu_torch.ops.scan_cuda import (  # noqa: E402
+    _scan_states_tile_torch,
+    scan_states_tile,
+)
 
 PREFIX_SALTS = (0x7F4A7C15, 0x94D049BB)
 
@@ -114,3 +118,63 @@ def test_serving_path_card_equals_cpu(cuda):
         for key in a:
             np.testing.assert_array_equal(a[key], b[key])
     assert res[0][0]["doc"].shape[0] >= 350
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S,U,B,L,dtype,with_lengths",
+    [
+        (184, 6, 16384 // 64, 2176, np.int16, True),  # the probe set's size
+        (512, 7, 300, 1000, np.int32, True),  # S*C = 4096; L % 64 != 0
+        (90, 40, 129, 77, np.int16, True),  # > 32 used bytes; L % 16 != 0
+        (31, 2, 5, 64, np.int32, False),  # no lengths
+        (20, 3, 7, 0, np.int16, True),  # no bytes: carry = init
+    ],
+)
+def test_tile_kernel_matches_plain(cuda, S, U, B, L, dtype, with_lengths):
+    rng = np.random.default_rng(S + B)
+    C = U + 1
+    used = np.sort(rng.choice(256, U, replace=False)).astype(np.uint8)
+    byte_class = np.zeros(256, np.int32)
+    byte_class[used] = np.arange(1, U + 1)
+    pool = np.concatenate([used, rng.integers(0, 256, 3)])
+
+    def c(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[::3] = 0
+    lengths[1::4] = L
+    args = (c(rng.integers(0, S, S * C).astype(dtype)), c(byte_class),
+            c(used), c(rng.choice(pool, (B, L)).astype(np.uint8)),
+            c(rng.integers(0, S, B).astype(np.int32)), C)
+    lt = c(lengths) if with_lengths else None
+    before = scan_states_tile.launches
+    got = scan_states_tile(*args, lengths=lt)
+    want = _scan_states_tile_torch(*args, lt)
+    torch.cuda.synchronize()
+    assert scan_states_tile.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int32
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tile_path_card_equals_cpu(cuda):
+    rng = np.random.default_rng(3)
+    pats = sorted({bytes(rng.integers(97, 103, rng.integers(4, 9))
+                         .astype(np.uint8)) for _ in range(40)})
+    docs = [rng.integers(97, 103, rng.integers(1, 9000), dtype=np.uint8)
+            .tobytes() for _ in range(50)]
+    specs = [{"id": i, "value": p} for i, p in enumerate(pats)]
+    res = []
+    for device in (cuda, "cpu"):
+        m = port.Matcher(specs, port.ScanConfig(backend="device"),
+                         device=device)
+        h = m.device_corpus(docs)
+        res.append((m.match_arrays(h), m.match_many(docs)))
+        assert m.stats.last_engine == "tile"
+    for k in res[0][0]:
+        np.testing.assert_array_equal(res[0][0][k], res[1][0][k])
+    assert res[0][1] == res[1][1]
+    assert res[0][0]["doc"].shape[0] > 100

@@ -29,6 +29,13 @@ got = sorted(zip(res["doc"].tolist(), res["pos"].tolist(),
                  res["pattern"].tolist()))
 want = [(0, 612, 0), (0, 664, 2)]
 assert got == want, got
+# the PHP-parity surface through the tile engine
+t = port.ahocorasick_init([{"key": "ab", "value": "alfa"}, {"value": "lfa"}],
+                          device="cpu")
+t.config = port.ScanConfig(backend="device")
+recs = port.ahocorasick_match("alFABETA gamma zetaomegaalfa!", t)
+assert t.stats.last_engine == "tile", t.stats.last_engine
+assert [(r["pos"], r["value"]) for r in recs] == [(28, "alfa"), (28, "lfa")]
 loaded = [n for n in sys.modules
           if n == "jax" or n.startswith("jax.")
           or n == "php_aho_corasick_tpu" or n.startswith("php_aho_corasick_tpu.")]

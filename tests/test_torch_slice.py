@@ -208,8 +208,8 @@ def test_records_chain_on_carried_tables(stage2):
 def test_unported_modes_raise():
     pats, docs = _mixed_case(0)
     m = port.Matcher([{"value": p} for p in pats],
-                     port.ScanConfig(engine="dfa"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+                     port.ScanConfig(engine="kgram"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         m.match_arrays(docs)
     m = port.Matcher([{"value": p} for p in pats],
                      port.ScanConfig(**dict(CFG, bloom_impl="take")),
