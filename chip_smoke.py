@@ -29,8 +29,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the dense engine (all 32 MiB), a run at the default match capacity
    (retries) and ``match_many``'s dicts; the PHP-parity functions on the
    reference's test1 input;
-6. one JSON line of kernel timings, the card's name and power limit, and
+6. the rows path: 2048 needles x 13 bytes over ``abcdef`` (plan q=9,
+   stride 5: the per-row filter on ``bloom_word_vmem``) against the
+   headline's 128 MiB, ``match_arrays_many([handle] * 12)`` timed, counted
+   and sync-checked as in 3; the kernel on the plan's table at this shape;
+   a 64 MiB copy with needles planted at 1e-5 (all found, 8 MiB equal to
+   the host walk);
+7. the anchored path: 2048 needles x 7 bytes over ``abcdef`` (anchored
+   plan, q=7, one 2^17-bit stage) with ``engine="cascade"`` against 32 MiB
+   of the base documents: ``match_arrays(handle)`` timed, its ``bloom_hit``
+   launches counted, and one pass split into device filter, fetch and host
+   verify; equal to the dense engine on all 32 MiB and to the host walk on
+   8 MiB; the kernel against ``bloom_hit_take`` at this shape;
+8. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
+
+Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 2-8, 2^12-2^15-word
+tables, one over the shared-memory budget, ragged code counts) and
+``bloom_hit`` (blooms of 2^15-2^20 bits) against their plain versions.
 """
 
 import json
@@ -49,6 +65,8 @@ DENSITY_REPS, DENSITY = 32, 1e-5  # 64 MiB, planted matches per byte
 BATCH = 12
 TILE_REPS, TILE_PASSES, DFA_PASSES = 16, 10, 2  # 32 MiB tile corpus
 TILE_CAPACITY = 1 << 19  # every final position of a pass in one scan
+ROWS_LEN = 13  # needle bytes of the rows path (plan stride 5)
+ANCHORED_LEN, ANCHORED_REPS, ANCHORED_PASSES = 7, 16, 3  # 32 MiB
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 NON_TENSOR_OPS_PER_S = 67e12  # its fp32 rate outside the tensor cores
@@ -153,6 +171,43 @@ def plain(args, kw):
     )
 
 
+def salt_probes(table, code, salts, log2_rows, pack):
+    """Salted table probes the bank-bloom AND makes on these codes
+    (``code`` unsigned in int64) when it stops at the first zero."""
+    import torch
+
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
+
+    probes = torch.zeros(code.shape, dtype=torch.int64, device=code.device)
+    alive = torch.ones(code.shape, dtype=torch.bool, device=code.device)
+    acc = None
+    per_salt = table.reshape(len(salts), -1)
+    for p, salt in enumerate(salts):
+        probes += alive
+        w = _bank_probe_torch(per_salt[p], code, (salt,), log2_rows, pack)
+        acc = w if acc is None else acc & w
+        alive = acc != 0
+    return int(probes.sum().item())
+
+
+def bound_of(n_bytes, ops):
+    """The larger of the memory and the operations floor, in ms."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", n_bytes, ops)
+
+
+def assert_no_sync(torch, fn):
+    """Run ``fn`` under ``set_sync_debug_mode("error")``: any host
+    synchronisation raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def bound_ms(args, kw, out):
     """Least time for the fused filter on these inputs: each input read
     and each output written once over the memory rate, against the
@@ -160,7 +215,6 @@ def bound_ms(args, kw, out):
     until the AND reaches zero, hit test) over the non-tensor rate."""
     import torch
 
-    from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
     from php_aho_corasick_tpu_torch.ops.filter_torch import (
         GRAM_BASE, U32_MASK, u32,
     )
@@ -178,21 +232,9 @@ def bound_ms(args, kw, out):
         word = flat[c % spc, c // spc : c // spc + n]
         code = (code + ((u32(word) >> (8 * k)) & 0xFF)
                 * pow(GRAM_BASE, q - 1 - j, 1 << 32)) & U32_MASK
-    probes = torch.zeros(n, dtype=torch.int64, device=table.device)
-    alive = torch.ones(n, dtype=torch.bool, device=table.device)
-    acc = None
-    per_salt = table.reshape(len(kw["salts"]), -1)
-    for p, salt in enumerate(kw["salts"]):
-        probes += alive
-        w = _bank_probe_torch(per_salt[p], code, (salt,), kw["log2_rows"],
-                              kw["pack"])
-        acc = w if acc is None else acc & w
-        alive = acc != 0
-    ops = n * (4 * q + 4) + 12 * int(probes.sum().item())
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), n_bytes, ops
+    probes = salt_probes(table, code, kw["salts"], kw["log2_rows"],
+                         kw["pack"])
+    return bound_of(n_bytes, n * (4 * q + 4) + 12 * probes)
 
 
 def phase_kernel_random(torch, fse, plain_fn):
@@ -218,6 +260,62 @@ def phase_kernel_random(torch, fse, plain_fn):
     torch.cuda.synchronize()
     err = compare(got, want, "random tables, shorts, pack=1")
     return int(got[4].sum().item()), err
+
+
+def random_bank_table(rng, k, log2_rows, pack):
+    """Bank tables whose k-salt AND is zero for about half the codes."""
+    rows = k * ((1 << log2_rows) // 128) // pack
+    # a sub-word of 32/pack bits, each set after the AND at 0.7/(32/pack)
+    bits = rng.random((rows, 128, 32)) < (0.7 / (32 // pack)) ** (1.0 / k)
+    words = (bits * (1 << np.arange(32, dtype=np.uint64))).sum(-1)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def phase_bloom_random(torch, bwv, bh):
+    """``bloom_word_vmem`` and ``bloom_hit`` against their plain versions
+    on random tables; returns ``(cases, max_abs_err)`` of each."""
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
+    from php_aho_corasick_tpu_torch.ops.filter_torch import (
+        bloom_hit_take, u32,
+    )
+
+    rng = np.random.default_rng(2)
+    c = lambda x: torch.from_numpy(x).to(DEVICE)  # noqa: E731
+    vmem_cases = [
+        (2, 12, 4, 1000),
+        (8, 12, 4, 3 * 4097 + 5),
+        (3, 13, 2, 777_777),
+        (2, 12, 1, 128),  # 32 KiB in shared memory
+        (5, 14, 1, 100_003),  # 320 KiB: over the budget, read from L2
+        (8, 15, 4, 12_345),  # 256 KiB: over the budget
+        (7, 15, 2, 2_000_001),
+    ]
+    err_v = 0
+    for k, log2_rows, pack, n in vmem_cases:
+        salts = tuple((0x9E3779B9 * (2 * i + 1)) & 0xFFFFFFFF
+                      for i in range(k))
+        table = c(random_bank_table(rng, k, log2_rows, pack))
+        codes = c(rng.integers(-(2**31), 2**31, n, dtype=np.int64)
+                  .astype(np.int32))
+        got = bwv(table, codes, salts, log2_rows, pack)
+        want = _bank_probe_torch(table, u32(codes), salts, log2_rows, pack)
+        torch.cuda.synchronize()
+        err_v = max(err_v, compare([got], [want], f"bloom_word_vmem k={k} "
+                                   f"2^{log2_rows} rows pack={pack} n={n}"))
+        assert 0 < int((got != 0).sum()) < n or n < 200, "degenerate table"
+    bloom_cases = [(15, 1000), (17, 3_000_001), (18, 333), (19, 65_537),
+                   (20, (1 << 20) + 3)]
+    err_h = 0
+    for log2_bits, n in bloom_cases:
+        words = c(rng.integers(-(2**31), 2**31, (1 << log2_bits) // 32,
+                               dtype=np.int64).astype(np.int32))
+        slots = c(rng.integers(0, 1 << log2_bits, n).astype(np.int32))
+        got = bh(words, slots)
+        want = bloom_hit_take(words, slots)
+        torch.cuda.synchronize()
+        err_h = max(err_h, compare([got], [want],
+                                   f"bloom_hit 2^{log2_bits} bits n={n}"))
+    return len(vmem_cases), err_v, len(bloom_cases), err_h
 
 
 def trace_breakdown(torch, run, card, passes=2, top=8):
@@ -274,6 +372,274 @@ def host_walk(auto, docs):
     return arr[:, order]
 
 
+def planted_check(m, needles, base, seed, what):
+    """Plant ``needles`` at ``DENSITY`` per byte into the base documents
+    replicated ``DENSITY_REPS`` times; every intact planted needle must be
+    found by ``match_arrays_many``, and the first 8 MiB must equal the
+    host walk."""
+    length = len(needles[0])
+    dens = np.repeat(base[None], DENSITY_REPS, axis=0).reshape(-1, DOC_BYTES)
+    prng = random.Random(seed)
+    n_plant = int(DENSITY * dens.size)
+    planted = []
+    for _ in range(n_plant):
+        di = prng.randrange(dens.shape[0])
+        off = prng.randrange(DOC_BYTES - length)
+        pid = prng.randrange(len(needles))
+        dens[di, off : off + length] = np.frombuffer(needles[pid], np.uint8)
+        planted.append((di, off, pid))
+    hd = m.device_corpus([row.tobytes() for row in dens])
+    rd = m.match_arrays_many([hd])[0]
+    found = set(zip(rd["doc"].tolist(), rd["pos"].tolist(),
+                    rd["pattern"].tolist()))
+    intact = [(d, o + length, p) for d, o, p in planted
+              if dens[d, o : o + length].tobytes() == needles[p]]
+    missing = [x for x in intact if x not in found]
+    assert not missing, f"{what}: planted needles not found: {missing[:5]}"
+    n_slice = (8 << 20) // DOC_BYTES
+    ref = host_walk(m.automaton, dens[:n_slice])
+    sel = rd["doc"] < n_slice
+    got_arr = np.stack([rd["doc"][sel], rd["pos"][sel], rd["pattern"][sel]])
+    assert np.array_equal(got_arr, ref), f"{what}: 8 MiB != host walk"
+    assert np.array_equal(rd["start_postion"], rd["pos"] - length)
+    log(f"{what}: {dens.size / 2**20:.0f} MiB, {n_plant} planted, "
+        f"{len(intact)} intact all found, {rd['doc'].shape[0]} matches; "
+        f"8 MiB slice equals the host walk ({ref.shape[1]} matches)")
+
+
+def needle_set(length, seed=1337):
+    """2048 distinct needles of ``length`` bytes over ``abcdef`` drawn
+    from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(ALPHABET, np.uint8)
+    out = set()
+    while len(out) < N_NEEDLES:
+        out.add(rng.choice(pool, length).tobytes())
+    return sorted(out)
+
+
+def timed_passes(torch, run, passes):
+    """CUDA-event ms per pass of ``passes`` calls of ``run``, the last
+    call's result, and host-clock ms per pass."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    e0.record()
+    for _ in range(passes):
+        res = run()
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - w0) * 1e3 / passes
+    return e0.elapsed_time(e1) / passes, res, wall
+
+
+def phase_rows_path(torch, base, card, bwv):
+    """The per-row sampled filter at the headline's 128 MiB: route, timed
+    and counted batch, no host sync in its dispatch, the kernel at this
+    shape against plain and bound, planted needles."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
+    from php_aho_corasick_tpu_torch.ops.filter_torch import (
+        sampled_gram_codes, u32,
+    )
+
+    needles = needle_set(ROWS_LEN)
+    m = Matcher([{"id": i, "value": p} for i, p in enumerate(needles)],
+                ScanConfig(backend="device", chunk_len=4096), device=DEVICE)
+    cm = m.cascade_model
+    p = cm.plan
+    assert (p.q, p.stride, len(p.vmem_salts), p.vmem_pack) == (9, 5, 7, 4), \
+        p.reason
+    docs = [row.tobytes() for row in base] * HEADLINE_REPS
+    total = sum(map(len, docs))
+    assert m._pick_engine(total) == "cascade" and cm.records_ok
+    h = m.device_corpus(docs)
+    assert h.fused_phases(cm) is None
+    B, L = h.chunks_d.shape
+    log(f"rows path: plan {p.reason}, table {tuple(p.vmem_words.shape)}, "
+        f"states {m.automaton.n_states}, win_len {cm.win_len}, "
+        f"{total / 2**20:.0f} MiB in rows [{B}, {L}], "
+        f"{B * -(-L // p.stride)} grid cells")
+    warm = m.match_arrays(h)
+    m.match_arrays_many([h] * BATCH)  # warm the batch structure
+    fallbacks = m.stats.records_fallbacks
+    bwv.launches = 0
+    ms, res, wall = timed_passes(
+        torch, lambda: m.match_arrays_many([h] * BATCH), 1)
+    ms, wall = ms / BATCH, wall / BATCH
+    launches = bwv.launches
+    assert launches >= BATCH, f"bloom_word_vmem launched {launches} times"
+    assert m.stats.records_fallbacks == fallbacks, "batch fell back"
+    for r in res:
+        for key in r:
+            assert np.array_equal(r[key], warm[key]), key
+    log(f"rows path: match_arrays_many([handle] * {BATCH}) over "
+        f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
+        f"({wall:.3f} ms wall), {total / ms / 1e6:.2f} GB/s, "
+        f"{res[0]['doc'].shape[0]} matches/pass, bloom_word_vmem launches "
+        f"{launches}, on {card}")
+    trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card)
+    pending = assert_no_sync(
+        torch, lambda: m._records_batch_dispatch([h] * 2, cm))
+    m._records_batch_finish(*pending, True)
+    log("sync check (set_sync_debug_mode='error'): no host sync in the rows "
+        "dispatch")
+
+    # the kernel on the plan's table at this shape, against plain and bound
+    dev = cm.device_arrays
+    codes = sampled_gram_codes(h.chunks_d, p.q, p.stride)
+    table = dev["vmem_table"]
+    kargs = (p.vmem_salts, p.vmem_log2_rows, p.vmem_pack)
+    got = bwv(table, codes, *kargs)
+    want = _bank_probe_torch(table, u32(codes), *kargs)
+    torch.cuda.synchronize()
+    err = compare([got], [want], "bloom_word_vmem, rows plan, 128 MiB")
+    k_ms = cuda_ms(lambda: bwv(table, codes, *kargs), 50)
+    p_ms = cuda_ms(lambda: _bank_probe_torch(table, u32(codes), *kargs), 3)
+    b_ms, b_by, b_bytes, b_ops = bound_of(
+        codes.numel() * 8 + table.numel() * 4,
+        12 * salt_probes(table, u32(codes), *kargs))
+    f_ms = cuda_ms(lambda: cm.scan_hits_sampled(
+        h.chunks_d, h.lengths_d, max(cm._cap_hits, 256)), 5)
+    log(f"bloom_word_vmem at {tuple(codes.shape)} codes: {k_ms:.4f} ms "
+        f"(plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: {b_bytes} "
+        f"bytes, {b_ops} ops), {int((got != 0).sum())} coarse hits; the "
+        f"whole per-row filter {f_ms:.3f} ms; on {card}")
+    planted_check(m, needles, base, int(DENSITY * 1e9) + 1,
+                  "rows planted corpus")
+    return {
+        "name": "bloom_word_vmem",
+        "route": "cuda",
+        "source": "php_aho_corasick_tpu_torch/csrc/bloom_word_vmem.cu",
+        "replaces": "php_aho_corasick_tpu/ops/filter_pallas.py:223",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def phase_anchored_path(torch, base, card, bh):
+    """The anchored cascade at 32 MiB (its filter probes through the
+    ``bloom_hit`` kernel): timed, counted, split into device filter /
+    fetch / host verify, and held against the dense engine and the host
+    walk; then the kernel against ``bloom_hit_take`` at this shape."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch.models.cascade import _next_cap
+    from php_aho_corasick_tpu_torch.ops.filter_torch import (
+        bloom_hit_take, bloom_slots, gram_codes,
+    )
+    from php_aho_corasick_tpu_torch.ops.scan_torch import _classes
+
+    needles = needle_set(ANCHORED_LEN)
+    specs = [{"id": i, "value": p} for i, p in enumerate(needles)]
+    docs = [row.tobytes() for row in base] * ANCHORED_REPS
+    total = sum(map(len, docs))
+    m = Matcher(specs, ScanConfig(backend="device", engine="cascade",
+                                  chunk_len=4096), device=DEVICE)
+    cm = m.cascade_model
+    p = cm.plan
+    assert p.mode == "anchored" and (p.q, p.offsets, p.log2_bits) == (
+        7, (0,), 17), p.reason
+    h = m.device_corpus(docs)
+    B, L = h.chunks_d.shape
+    log(f"anchored path: plan q={p.q} offsets {p.offsets} 2^{p.log2_bits}"
+        f"-bit bloom, states {m.automaton.n_states}, "
+        f"{total / 2**20:.0f} MiB in rows [{B}, {L}]")
+    warm = m.match_arrays(h)
+    bh.launches = 0
+    ms, got, wall = timed_passes(torch, lambda: m.match_arrays(h),
+                                 ANCHORED_PASSES)
+    launches = bh.launches
+    assert launches >= ANCHORED_PASSES, f"bloom_hit launched {launches}"
+    for key in got:
+        assert np.array_equal(got[key], warm[key]), key
+    # one pass in parts: the filter at the configured capacity, again at
+    # the observed count (the reference's ladder), fetch, verify
+    cap = m.config.match_capacity
+
+    def filt(capacity):
+        return cm.scan_candidates(h.chunks_d, h.lengths_d, capacity)
+
+    n = int(filt(cap)[1])
+    cap2 = _next_cap(n)
+    f1 = cuda_ms(lambda: filt(cap), 3)
+    f2 = cuda_ms(lambda: filt(cap2), 3)
+    idx, _ = filt(cap2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx_np = idx[:n].cpu().numpy()
+    fetch = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cm.verify_arrays(h.packed, idx_np, n)
+    verify = (time.perf_counter() - t0) * 1e3
+    log(f"anchored path: match_arrays(handle) x {ANCHORED_PASSES}: "
+        f"{ms:.3f} ms/pass by CUDA events ({wall:.3f} ms wall), "
+        f"{total / ms / 1e6:.3f} GB/s, {got['doc'].shape[0]} matches/pass, "
+        f"{n} candidates, bloom_hit launches {launches}; parts: filter "
+        f"{f1:.3f} ms at capacity {cap} + {f2:.3f} ms at {cap2} (device), "
+        f"fetch {fetch:.3f} ms, host verify {verify:.3f} ms (host clock); "
+        f"on {card}")
+
+    # the dense engine on all 32 MiB, the host walk on 8 MiB
+    md = Matcher(specs, ScanConfig(backend="device", engine="dfa",
+                                   chunk_len=4096,
+                                   match_capacity=TILE_CAPACITY),
+                 device=DEVICE)
+    rd = md.match_arrays(h)
+    for key in got:
+        assert np.array_equal(rd[key], got[key]), f"dfa differs: {key}"
+    n_slice = min((8 << 20) // DOC_BYTES, len(docs))
+    ref = host_walk(md.automaton, np.frombuffer(b"".join(docs[:n_slice]),
+                                                np.uint8)
+                    .reshape(n_slice, DOC_BYTES))
+    sel = got["doc"] < n_slice
+    assert np.array_equal(np.stack([got["doc"][sel], got["pos"][sel],
+                                    got["pattern"][sel]]), ref), \
+        "anchored: 8 MiB slice != host walk"
+    log(f"anchored records: equal to the dense engine "
+        f"on {total / 2**20:.0f} MiB and the host walk on 8 MiB "
+        f"({ref.shape[1]} matches)")
+
+    # the kernel on the plan's bloom at this shape, against plain and bound
+    dev = cm.device_arrays
+    cls = _classes(h.chunks_d, dev["byte_class"], dev["used_bytes"])
+    slots = bloom_slots(gram_codes(cls, p.q, m.automaton.n_classes),
+                        p.log2_bits, p.salts[0])
+    words = dev["bloom_words"][0]
+    hit = bh(words, slots)
+    want = bloom_hit_take(words, slots)
+    torch.cuda.synchronize()
+    err = compare([hit], [want], "bloom_hit, anchored plan, 32 MiB")
+    k_ms = cuda_ms(lambda: bh(words, slots), 50)
+    p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 10)
+    b_ms, b_by, b_bytes, b_ops = bound_of(
+        slots.numel() * 8 + words.numel() * 4, 5 * slots.numel())
+    log(f"bloom_hit at {tuple(slots.shape)} slots: {k_ms:.4f} ms (plain "
+        f"bloom_hit_take {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{b_bytes} bytes, {b_ops} ops), {int(hit.sum())} set bits; on "
+        f"{card}")
+    return {
+        "name": "bloom_hit",
+        "route": "cuda",
+        "source": "php_aho_corasick_tpu_torch/csrc/bloom_hit.cu",
+        "replaces": "php_aho_corasick_tpu/ops/filter_pallas.py:838",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        # the plain version is the library path: one take of the words
+        # and two shifts, no kernel of this package
+        "library_ms": p_ms,
+    }
+
+
 def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
     """A random DFA of ``S`` states over ``U`` used bytes and ``[B, L]``
     rows (a third of them empty, a quarter full), as the tile kernel's
@@ -321,11 +687,7 @@ def tile_bound_ms(table, chunks, n_classes):
     table load) over the non-tensor rate."""
     B, L = chunks.shape
     n_bytes = B * L * (1 + 4) + B * 4 * 3 + table.numel() * 4 + 256 * 4
-    ops = 3 * B * L
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", n_bytes, ops)
+    return bound_of(n_bytes, 3 * B * L)
 
 
 def probe_set():
@@ -513,6 +875,8 @@ def main():
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
     from php_aho_corasick_tpu_torch.ops import _build
     from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        bloom_hit as bh,
+        bloom_word_vmem as bwv,
         fused_sampled_extract as fse,
     )
     from php_aho_corasick_tpu_torch.ops.scan_cuda import (
@@ -540,6 +904,9 @@ def main():
     n_cases, tile_err = phase_tile_random(torch, sst, _scan_states_tile_torch)
     log(f"kernel check 3 (scan_states_tile, {n_cases} random tables): "
         f"bit-equal")
+    n_vmem, vmem_err, n_hit, hit_err = phase_bloom_random(torch, bwv, bh)
+    log(f"kernel check 4 (bloom_word_vmem, {n_vmem} random tables; "
+        f"bloom_hit, {n_hit} random blooms): bit-equal")
 
     # 3. main path setup at the headline size
     needles, base = workload()
@@ -605,55 +972,27 @@ def main():
     trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card)
 
     # the dispatch half must not synchronise with the host
-    fse.launches = 0
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        pending = m._records_batch_dispatch([h] * 2, cm)
-        sync = "no host sync in the records dispatch"
-    except RuntimeError as e:
-        pending = None
-        sync = f"HOST SYNC in the records dispatch: {str(e)[:200]}"
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    if pending is not None:
-        m._records_batch_finish(*pending, True)
-    log(f"sync check (set_sync_debug_mode='error'): {sync}")
+    pending = assert_no_sync(
+        torch, lambda: m._records_batch_dispatch([h] * 2, cm))
+    m._records_batch_finish(*pending, True)
+    log("sync check (set_sync_debug_mode='error'): no host sync in the "
+        "records dispatch")
 
     # 4. planted matches against a host DFA walk
-    dens = np.repeat(base[None], DENSITY_REPS, axis=0).reshape(-1, DOC_BYTES)
-    prng = random.Random(int(DENSITY * 1e9))
-    n_plant = int(DENSITY * dens.size)
-    planted = []
-    for _ in range(n_plant):
-        di = prng.randrange(dens.shape[0])
-        off = prng.randrange(DOC_BYTES - NEEDLE_LEN)
-        pid = prng.randrange(N_NEEDLES)
-        dens[di, off : off + NEEDLE_LEN] = np.frombuffer(needles[pid], np.uint8)
-        planted.append((di, off, pid))
-    hd = m.device_corpus([row.tobytes() for row in dens])
-    rd = m.match_arrays_many([hd])[0]
-    found = set(zip(rd["doc"].tolist(), rd["pos"].tolist(),
-                    rd["pattern"].tolist()))
-    intact = [(d, o + NEEDLE_LEN, p) for d, o, p in planted
-              if dens[d, o : o + NEEDLE_LEN].tobytes() == needles[p]]
-    missing = [x for x in intact if x not in found]
-    assert not missing, f"planted needles not found: {missing[:5]}"
-    n_slice = (8 << 20) // DOC_BYTES
-    ref = host_walk(m.automaton, dens[:n_slice])
-    sel = rd["doc"] < n_slice
-    got_arr = np.stack([rd["doc"][sel], rd["pos"][sel], rd["pattern"][sel]])
-    assert np.array_equal(got_arr, ref), "8 MiB slice differs from host walk"
-    assert np.array_equal(rd["start_postion"], rd["pos"] - NEEDLE_LEN)
-    log(f"planted corpus: {dens.size / 2**20:.0f} MiB, {n_plant} planted, "
-        f"{len(intact)} intact all found, {rd['doc'].shape[0]} matches; "
-        f"8 MiB slice equals the host walk ({ref.shape[1]} matches)")
+    planted_check(m, needles, base, int(DENSITY * 1e9), "planted corpus")
 
     # 5. the tile path
     tile_kernel = phase_tile_path(torch, base, card, sst,
                                   _scan_states_tile_torch)
     tile_kernel["max_abs_err"] = max(tile_kernel["max_abs_err"], tile_err)
 
-    # 6. timings and the last line
+    # 6. the rows path, 7. the anchored path
+    rows_kernel = phase_rows_path(torch, base, card, bwv)
+    rows_kernel["max_abs_err"] = max(rows_kernel["max_abs_err"], vmem_err)
+    hit_kernel = phase_anchored_path(torch, base, card, bh)
+    hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], hit_err)
+
+    # 8. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",
@@ -666,7 +1005,7 @@ def main():
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-    }, tile_kernel]
+    }, tile_kernel, rows_kernel, hit_kernel]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

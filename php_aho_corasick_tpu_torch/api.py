@@ -11,10 +11,12 @@ API's field name) and ``pattern`` (index into the accepted patterns), in
 reference emission order.
 
 Scans go to one of three engines (:meth:`Matcher._pick_engine`): the
-sampled cascade's records chain for large scans, the tile engine
+sampled cascade for large scans, the tile engine
 (``csrc/scan_states_tile.cu``) for small automata, and the dense DFA
 otherwise; scans of at most ``host_scan_threshold`` bytes run on the host
-(``backend="auto"``).
+(``backend="auto"``).  A forced ``engine="cascade"`` also serves the
+anchored plan, whose candidates are verified on the host
+(``CascadeModel.run_arrays``).
 
 A matcher runs on one device: CUDA unless the caller passes
 ``device="cpu"``.  Where the path meets a mode this port does not have

@@ -111,7 +111,10 @@ class ScanConfig:
     #: gather wall, docs/PERF_NOTES.md round 3), else "take".  (A one-hot
     #: f32 matmul lookup was tried and PRUNED in round 3: inexact on the
     #: v5e MXU — bf16 mantissa rounding of packed halves => missed
-    #: matches — and HBM-bound on the materialized one-hot.)
+    #: matches — and HBM-bound on the materialized one-hot.)  In this
+    #: package anchored plans probe through the bloom_hit kernel under
+    #: every setting, and sampled plans need "auto" or "pallas_vmem" (the
+    #: sampled take filters are not ported).
     bloom_impl: str = "auto"
 
     #: byte budget for the lane-partitioned VMEM bloom table ([N, 128]

@@ -2,8 +2,11 @@
 
 See ops/filter_torch.py for the device chain.  This module decides when the
 cascade applies, builds the per-stage hashed blooms from the pattern set,
-and verifies compacted candidate starts exactly with a vectorized trie
-walk (goto-only, detected via ``state_depth``).
+and serves a scan by one of two routes (:meth:`CascadeModel.run_arrays`):
+sampled plans whose windows fit 31 bytes emit match records from the
+device; the anchored plan and sampled plans with longer windows fetch
+candidate starts and verify them exactly on the host with a vectorized
+trie walk (goto-only, detected via ``state_depth``).
 
 The start-based paradigm is the "failure-less Aho-Corasick" family
 (cf. PFAC, arXiv:1811.10498, PAPERS.md) — here with a vectorized bloom
@@ -536,8 +539,8 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 
 class CascadeModel:
-    """Device candidate filter + exact device window verifier (the
-    fused-filter records path)."""
+    """Device candidate filter + exact verifier (device records or the
+    host walk)."""
 
     def __init__(
         self,
@@ -677,13 +680,21 @@ class CascadeModel:
                     self._dev["vmem_table"] = put(p.vmem_words)
                 if p.prefix_words is not None:
                     self._dev["prefix_words"] = put(p.prefix_words)
+            else:
+                self._dev["bloom_words"] = put(p.bloom_words)
         return self._dev
 
     def bloom_impl(self) -> str:
-        """The filter implementation: always the fused kernel
-        (``"pallas_vmem"``, the config's name for it) where the planner
-        built its bank bloom; the take filters are not ported."""
+        """The filter implementation.  Anchored plans always probe
+        through the ``bloom_hit`` kernel (``"pallas"``), whatever the
+        setting: on the card it beats ``bloom_hit_take`` at every shape
+        measured, and on a CPU bloom its wrapper runs ``bloom_hit_take``.
+        Sampled plans take the bank-bloom filters (``"pallas_vmem"``, the
+        config's name for them) where the planner built their bloom; the
+        sampled take filters are not ported."""
         impl = self.config.bloom_impl
+        if self.plan.mode != "sampled":
+            return "pallas"
         if self._force_take:
             # a launch saw > 128 coarse survivors in one slot group — the
             # fused extraction cannot represent that density
@@ -789,28 +800,42 @@ class CascadeModel:
             use_k2=use_k2,
         )
 
+    def _device_inputs(self, packed: PackedRows, dev_inputs):
+        """``(chunks, lengths, emit_from, phase_g)`` on the device: the
+        resident tensors of ``dev_inputs`` where given (``phase_g`` None
+        when absent), else one upload of ``packed``."""
+        import torch
+
+        if dev_inputs is not None:
+            phase_g = dev_inputs[3] if len(dev_inputs) > 3 else None
+            return tuple(dev_inputs[:3]) + (phase_g,)
+        return tuple(
+            torch.from_numpy(x).to(self.device)
+            for x in (packed.chunks, packed.lengths, packed.emit_from)
+        ) + (None,)
+
     def run_arrays(self, packed: PackedRows, capacity: int, dev_inputs=None):
-        """Full cascade on one device through the records path; returns
-        ``(docs, end_pos, pids)`` arrays in reference emission order.
+        """Full cascade on one device; returns ``(docs, end_pos, pids)``
+        arrays in reference emission order.  Sampled plans whose windows
+        fit the records gate emit match records from the device; the
+        anchored plan and sampled plans with windows over 32 bytes verify
+        fetched candidate starts on the host.
 
         ``dev_inputs``: optional ``(chunks, lengths, emit_from[,
         phase_g])`` already on the device (resident-corpus callers)."""
         import torch
 
-        if not (self.plan.mode == "sampled" and self.records_ok):
+        if not (self.plan.mode == "sampled" and self.device_verify_ok):
+            idx_np, n = self.candidates_np(packed, capacity, dev_inputs)
+            return self.verify_arrays(packed, idx_np, n)
+        if not self.records_ok:
             raise _not_ported(
-                f"the cascade without device records (plan {self.plan.mode!r},"
-                f" win_len={self.win_len})", 6
+                f"the flagged-window device verify (win_len={self.win_len}, "
+                f"states={self.auto.n_states})", 6
             )
-        phase_g = None
-        if dev_inputs is not None:
-            chunks_d, lengths_d, emit_from_d = dev_inputs[:3]
-            if len(dev_inputs) > 3:
-                phase_g = dev_inputs[3]
-        else:
-            chunks_d = torch.from_numpy(packed.chunks).to(self.device)
-            lengths_d = torch.from_numpy(packed.lengths).to(self.device)
-            emit_from_d = torch.from_numpy(packed.emit_from).to(self.device)
+        chunks_d, lengths_d, emit_from_d, phase_g = self._device_inputs(
+            packed, dev_inputs
+        )
 
         def launch_r(cap_a, cap_r):
             rc, rp, n_d, nr_d, nc_d = self.launch_device_records(
@@ -975,3 +1000,210 @@ class CascadeModel:
         docs = packed.doc_id[arr[0, order]].astype(np.int64)
         ends = packed.global_off[arr[0, order]] + arr[1, order]
         return docs, ends, arr[3, order]
+
+    def scan_hits_sampled(
+        self, chunks, lengths, capacity: int,
+        cap_coarse: Optional[int] = None, phase_g=None,
+    ):
+        """One launch of the sampled bank-bloom filter (fused where the
+        alignment gate holds, else per row).  Returns ``(grid_idx,
+        long_word, short_word, n_hits, n_coarse)`` as device values;
+        ``n_coarse`` is the most survivors of one extraction group, which
+        must not exceed the slot capacity ``self._cap_coarse``."""
+        from ..ops.filter_torch import filter_hits_sampled_vmem
+
+        self.bloom_impl()  # raises on the unported take filters
+        dev = self.device_arrays
+        p = self.plan
+        return filter_hits_sampled_vmem(
+            dev["vmem_table"],
+            dev["sampled_words"],
+            chunks,
+            lengths,
+            dev["min_long_len"],
+            q=p.q,
+            stride=p.stride,
+            log2_rows=p.vmem_log2_rows,
+            salts=p.vmem_salts,
+            pack=p.vmem_pack,
+            log2_words=p.log2_words,
+            fine_salts=p.sampled_salts,
+            shorts=p.shorts,
+            capacity=capacity,
+            cap_coarse=cap_coarse or self._cap_coarse,
+            prefix_words=dev.get("prefix_words"),
+            prefix_salts=p.prefix_salts,
+            prefix_log2=p.prefix_log2,
+            prefix_len=p.prefix_len,
+            phase_g=phase_g,
+        )
+
+    def expand_hits(
+        self,
+        grid_idx: np.ndarray,
+        long_word: np.ndarray,
+        short_word: np.ndarray,
+        n_hits: int,
+        row_len: int,
+        lengths: np.ndarray,  # [B] int32 (host copy)
+    ) -> Tuple[np.ndarray, int]:
+        """Host expansion of compacted grid hits into sorted unique
+        candidate-start indices (flattened ``b * L + t``)."""
+        p = self.plan
+        s = p.stride
+        M = -(-row_len // s)
+        g = grid_idx[:n_hits].astype(np.int64)
+        lw = long_word[:n_hits].astype(np.int64) & 0xFFFFFFFF
+        sw = short_word[:n_hits].astype(np.int64) & 0xFFFFFFFF
+        b = g // M
+        pos = (g % M) * s
+        base = b * row_len
+        min_long = p.min_long_len
+        parts: List[np.ndarray] = []
+        for j in range(s):
+            sel = (lw >> j) & 1 != 0
+            if sel.any():
+                t = pos[sel] - j
+                ok = (t >= 0) & (t + min_long <= lengths[b[sel]])
+                parts.append(base[sel][ok] + t[ok])
+            sel = (sw >> j) & 1 != 0
+            if sel.any():  # short starts: already length-gated on device
+                parts.append(base[sel] + pos[sel] + j)
+        if not parts:
+            return np.zeros(0, np.int64), 0
+        starts = np.unique(np.concatenate(parts))
+        return starts, starts.shape[0]
+
+    def candidates_np(self, packed: PackedRows, capacity: int,
+                      dev_inputs=None):
+        """Device filter + capacity retry + (sampled) host bit expansion.
+        Returns ``(start_idx np, n_starts)`` ready for
+        :meth:`verify_arrays`.  The anchored filter starts every call at
+        ``capacity`` and retries once at the observed count, as the
+        reference does.  ``dev_inputs`` as in :meth:`run_arrays`; the
+        reference uploads ``packed`` again instead, with the same
+        result."""
+        import torch
+
+        chunks_d, lengths_d, _, phase_g = self._device_inputs(
+            packed, dev_inputs
+        )
+        if self.plan.mode == "sampled":
+            while True:
+                idx, lw, sw, n_d, nc_d = self.scan_hits_sampled(
+                    chunks_d, lengths_d, capacity, phase_g=phase_g
+                )
+                n, nc = torch.stack([n_d, nc_d]).tolist()
+                if n <= capacity and nc <= self._cap_coarse:
+                    break
+                if n > capacity:
+                    self._count_retry("filter", n, capacity)
+                    capacity = _next_cap(n)
+                if nc > self._cap_coarse:
+                    self._count_retry("coarse", nc, self._cap_coarse)
+                    self._grow_cap_coarse(nc)
+            self._decay_cap_coarse(nc)
+            flat = torch.cat([idx[:n], lw[:n], sw[:n]]).cpu().numpy()
+            return self.expand_hits(
+                flat[:n], flat[n : 2 * n], flat[2 * n :], n,
+                packed.row_len, packed.lengths,
+            )
+        while True:
+            idx, n_d = self.scan_candidates(chunks_d, lengths_d, capacity)
+            n = int(n_d)
+            if n <= capacity:
+                break
+            capacity = _next_cap(n)
+        return idx[:n].cpu().numpy(), n
+
+    def scan_candidates(self, chunks, lengths, capacity: int):
+        """One launch of the anchored candidate filter: ``(start_idx
+        [capacity], n_candidates)`` as device values.  Ownership
+        (``emit_from``) is left to :meth:`verify_arrays`."""
+        from ..ops.filter_torch import filter_candidates
+
+        dev = self.device_arrays
+        p = self.plan
+        assert p.mode != "sampled", "use scan_hits_sampled / candidates_np"
+        return filter_candidates(
+            dev["bloom_words"],
+            dev["byte_class"],
+            dev["used_bytes"],
+            chunks,
+            lengths,
+            dev["min_long_len"],
+            n_classes=self.auto.n_classes,
+            q=p.q,
+            offsets=p.offsets,
+            log2_bits=p.log2_bits,
+            salts=p.salts,
+            shorts=p.shorts,
+            capacity=capacity,
+        )
+
+    def verify_arrays(
+        self,
+        packed: PackedRows,
+        start_idx: np.ndarray,  # [>= n_cand] flattened b * L + p, ascending
+        n_cand: int,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Exact verification: vectorized goto-walk from root over each
+        candidate window; returns ``(docs, end_pos, pids)`` arrays in
+        reference emission order ``(row, end, start)``."""
+        if n_cand == 0:
+            z = np.zeros(0, np.int64)
+            return z, z, z
+        auto = self.auto
+        L = packed.row_len
+        idx = start_idx[:n_cand].astype(np.int64)
+        rows = idx // L
+        ps = idx % L
+        bc = auto.byte_class
+        depth = auto.state_depth
+        own = self.plan.own_pat
+        row_len = packed.lengths[rows].astype(np.int64)
+        row_emit = packed.emit_from[rows].astype(np.int64)
+
+        # active-set walk: candidates that fall off the pure-prefix path are
+        # compacted away each level, so total work tracks the (rapidly
+        # decaying) survivor count rather than candidates x max_len
+        act = np.arange(idx.shape[0])
+        states = np.zeros(idx.shape[0], dtype=np.int64)
+        out_rows: List[np.ndarray] = []
+        out_end: List[np.ndarray] = []
+        out_start: List[np.ndarray] = []
+        out_pid: List[np.ndarray] = []
+        for j in range(auto.max_len):
+            pos = ps[act] + j
+            in_row = pos < row_len[act]
+            if not in_row.all():
+                act = act[in_row]
+                pos = pos[in_row]
+            if act.size == 0:
+                break
+            b = packed.chunks[rows[act], pos]
+            st = auto.lookup(states[act], bc[b]).astype(np.int64)
+            states[act] = st
+            on_path = depth[st] == j + 1  # left the pure-prefix path?
+            o = own[st]
+            # end-1 byte index = pos; ownership window [emit_from, length)
+            emit = on_path & (o >= 0) & (pos >= row_emit[act])
+            if emit.any():
+                sel = np.nonzero(emit)[0]
+                out_rows.append(rows[act[sel]])
+                out_end.append(pos[sel] + 1)
+                out_start.append(ps[act[sel]])
+                out_pid.append(o[sel])
+            if not on_path.all():
+                act = act[on_path]
+        if not out_rows:
+            z = np.zeros(0, np.int64)
+            return z, z, z
+        r = np.concatenate(out_rows)
+        e = np.concatenate(out_end)
+        st = np.concatenate(out_start)
+        pid = np.concatenate(out_pid)
+        order = np.lexsort((st, e, r))  # (row, end, start): longest-first
+        docs = packed.doc_id[r[order]].astype(np.int64)
+        ends = packed.global_off[r[order]] + e[order]
+        return docs, ends, pid[order].astype(np.int64)

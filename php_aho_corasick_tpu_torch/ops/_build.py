@@ -20,7 +20,10 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("fused_sampled_extract", "scan_states_tile")
+KERNELS = (
+    "fused_sampled_extract", "scan_states_tile", "bloom_word_vmem",
+    "bloom_hit",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -1,9 +1,19 @@
-"""Fused sampled filter: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Bloom filter kernels: the hand-written Hopper kernels and their plain
+PyTorch versions.
 
-Counterpart of the JAX package's ``ops/filter_pallas.py`` (its
-``fused_sampled_extract`` Pallas kernel).  For every stride cell of the
-corpus grid the filter
+Counterpart of the JAX package's ``ops/filter_pallas.py``, one kernel for
+each of its Pallas kernels:
+
+- :func:`fused_sampled_extract` (``csrc/fused_sampled_extract.cu``), the
+  fused sampled filter below;
+- :func:`bloom_word_vmem` (``csrc/bloom_word_vmem.cu``), the salted
+  bank-bloom AND of the per-row sampled filter; plain version
+  :func:`_bank_probe_torch`;
+- :func:`bloom_hit` (``csrc/bloom_hit.cu``), one bit of a bit bloom per
+  slot, for the anchored candidate filter; plain version
+  ``filter_torch.bloom_hit_take``.
+
+For every stride cell of the corpus grid the fused filter
 
 1. assembles the q-gram code from the ``spc`` corpus word phases,
 2. ANDs ``k`` salted bank-bloom words (``pack`` sub-words per physical
@@ -15,10 +25,10 @@ corpus grid the filter
    survivor counts, and
 5. optionally refines the slots against the small prefix bit bloom.
 
-On a CUDA tensor :func:`fused_sampled_extract` launches
-``csrc/fused_sampled_extract.cu``; on a CPU tensor it runs
-:func:`_fused_extract_torch`, which the tests hold bit for bit against
-the JAX package's own mirror of its kernel.
+On a CUDA tensor each wrapper launches its kernel (counted in its
+``launches`` attribute) and never falls back; on a CPU tensor it runs its
+plain version, which the tests hold bit for bit against the JAX
+package's own mirror of the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ from typing import Optional, Tuple
 import torch
 
 from .filter_torch import (
-    FUSED_BLOCK_R, GRAM_BASE, KNUTH, U32_MASK, mul32, to_i32, u32,
+    FUSED_BLOCK_R, GRAM_BASE, KNUTH, U32_MASK, bloom_hit_take, mul32,
+    to_i32, u32,
 )
 
 
@@ -346,3 +357,82 @@ def fused_sampled_extract(
 
 
 fused_sampled_extract.launches = 0
+
+
+def bloom_word_vmem(
+    table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
+    codes: torch.Tensor,  # [...] int32 gram codes
+    salts: tuple,  # k probe salts, one bank table each
+    log2_rows: int,  # log2 of the words of one (unpacked) probe table
+    pack: int = 1,  # banks per physical word (32/pack-bit sub-words)
+) -> torch.Tensor:
+    """AND over ``salts`` of each code's salted bank-bloom sub-word; same
+    shape as ``codes``, int32.  A zero word means no alignment of any long
+    pattern can produce the gram.
+
+    A CUDA ``table`` launches ``csrc/bloom_word_vmem.cu`` (counted in
+    ``bloom_word_vmem.launches``); a CPU one runs
+    :func:`_bank_probe_torch`."""
+    if not table.is_cuda:
+        return _bank_probe_torch(table, u32(codes), salts, log2_rows, pack)
+    dev = table.device
+    n_banks = (1 << log2_rows) // 128
+    if not (1 <= len(salts) <= 8 and pack in (1, 2, 4)
+            and 7 <= log2_rows <= 31 and n_banks % pack == 0):
+        raise ValueError("bloom_word_vmem: unsupported configuration")
+    _check("table", table, (len(salts) * n_banks // pack, 128), dev)
+    _check("codes", codes, codes.shape, dev)
+    out = torch.empty_like(codes)
+    if codes.numel() == 0:
+        return out
+    from ._build import load_library
+
+    fn = load_library("bloom_word_vmem").bloom_word_vmem_launch
+    fn.argtypes = [_P, _LL, _P, _P, _LL, _P, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        table.data_ptr(), table.numel(), codes.data_ptr(), out.data_ptr(),
+        codes.numel(), _u32_array(salts, len(salts)), len(salts), log2_rows,
+        pack, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"bloom_word_vmem kernel launch failed: CUDA error {rc}"
+        )
+    bloom_word_vmem.launches += 1
+    return out
+
+
+bloom_word_vmem.launches = 0
+
+
+def bloom_hit(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Bit ``slot`` of the bit bloom ``words [W]`` for every slot in
+    ``[0, 32 * W)``, as int32 0/1 of the slots' shape.
+
+    A CUDA ``words`` launches ``csrc/bloom_hit.cu`` (counted in
+    ``bloom_hit.launches``); a CPU one runs
+    ``filter_torch.bloom_hit_take``."""
+    if not words.is_cuda:
+        return bloom_hit_take(words, slots)
+    dev = words.device
+    _check("words", words, (words.shape[0],), dev)
+    _check("slots", slots, slots.shape, dev)
+    out = torch.empty_like(slots)
+    if slots.numel() == 0:
+        return out
+    from ._build import load_library
+
+    fn = load_library("bloom_hit").bloom_hit_launch
+    fn.argtypes = [_P, _LL, _P, _P, _LL, _P]
+    fn.restype = ctypes.c_int
+    rc = fn(words.data_ptr(), words.numel(), slots.data_ptr(),
+            out.data_ptr(), slots.numel(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bloom_hit kernel launch failed: CUDA error {rc}")
+    bloom_hit.launches += 1
+    return out
+
+
+bloom_hit.launches = 0

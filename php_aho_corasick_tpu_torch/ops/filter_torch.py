@@ -1,18 +1,27 @@
-"""Sampled gram-filter cascade in PyTorch: the resident-corpus records
-chain (filter -> slot compaction -> 2-step window verify).
+"""Gram-filter cascade in PyTorch: the sampled records chain (filter ->
+slot compaction -> 2-step window verify) and the anchored candidate
+filter.
 
-Counterpart of the JAX package's ``ops/filter_jax.py``, fused branch
-only.  Any occurrence of a pattern of length >= ``min_long`` covers
-exactly one point of a ``stride`` lattice, so a positional-alignment
-bloom (bit ``j`` set <=> some long pattern has this q-gram at offset
-``j``) is probed only at grid points.  Survivors are rank-extracted by
-the fused kernel (ops/filter_cuda.py), refined, compacted and verified by
-an exact DFA walk over their candidate windows, which emits compacted
-``(cell, state*32 + j)`` match records for the host to expand.
+Counterpart of the JAX package's ``ops/filter_jax.py``, for its bank-bloom
+filters.  **Sampled**: any occurrence of a pattern of length >=
+``min_long`` covers exactly one point of a ``stride`` lattice, so a
+positional-alignment bloom (bit ``j`` set <=> some long pattern has this
+q-gram at offset ``j``) is probed only at grid points.  Where the stride
+is a multiple of 4 dividing the row length, survivors are rank-extracted
+by the fused kernel (``ops/filter_cuda.fused_sampled_extract``); else the
+per-row filter probes every cell's code through
+``ops/filter_cuda.bloom_word_vmem`` and rank-extracts per 128-lane row.
+Either way the slots are refined, compacted and verified by an exact DFA
+walk over their candidate windows, which emits compacted ``(cell,
+state*32 + j)`` match records for the host to expand.  **Anchored**
+(:func:`filter_candidates`): every position is tested as a match start
+against 1-3 staged bit blooms of class q-gram codes; the survivors are
+verified on the host.
 
 32-bit unsigned hash arithmetic is done in int64 with ``& U32_MASK``:
-``torch.uint32`` lacks shifts and adds, and int32 ``>>`` is arithmetic.
-Outputs agree with the JAX package bit for bit, in slot order.
+``torch.uint32`` lacks shifts and adds, int32 ``>>`` is arithmetic, and
+int32 products must not overflow.  Outputs agree with the JAX package
+bit for bit (the fused path in slot order).
 """
 
 from __future__ import annotations
@@ -62,6 +71,30 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
+def gram_codes(cls: torch.Tensor, q: int, n_classes: int) -> torch.Tensor:
+    """Rolling base-C q-gram codes: ``code[p]`` covers ``cls[p : p+q]``
+    (positions whose gram overruns the row read trailing zeros), wrapping
+    in 32 bits like the reference's int32 arithmetic."""
+    B, L = cls.shape
+    pad = torch.zeros((B, q - 1), dtype=torch.int64, device=cls.device)
+    ext = torch.cat([cls.to(torch.int64), pad], dim=1)
+    code = torch.zeros((B, L), dtype=torch.int64, device=cls.device)
+    for j in range(q):
+        code = (code * n_classes + ext[:, j : j + L]) & U32_MASK
+    return to_i32(code)
+
+
+def bloom_slots(code: torch.Tensor, log2_bits: int, salt: int) -> torch.Tensor:
+    """Multiplicative hash of a gram code into a bloom slot index."""
+    return (mul32(u32(code) ^ salt, KNUTH) >> (32 - log2_bits)).to(torch.int32)
+
+
+def bloom_hit_take(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Bit ``slot`` of the bit bloom ``words`` (int32 0/1 per slot)."""
+    w = words[(slots >> 5).long()]
+    return (w >> (slots & 31)) & 1
+
+
 def short_pattern_mask(
     chunks: torch.Tensor, shorts: Sequence[bytes]
 ) -> torch.Tensor:
@@ -94,6 +127,31 @@ def _short_start_words(chunks, lengths, shorts, stride, M):
     for j in range(stride):
         acc |= cell[:, :, j].to(torch.int64) << j
     return to_i32(acc)
+
+
+def sampled_gram_codes(
+    chunks: torch.Tensor, q: int, stride: int, base: int = GRAM_BASE
+) -> torch.Tensor:
+    """Polynomial q-gram byte codes ``sum_j byte[p+j] * base^(q-1-j)``
+    (wrapping in 32 bits) at the grid positions ``p = m * stride`` only:
+    ``[B, M]`` int32, ``M = ceil(L / stride)``.  A gram overrunning its
+    row reads zeros.  The reference's cell-aligned planes formulation
+    gives the same codes; the per-row filter, the only caller, runs
+    exactly where its gate fails.
+
+    One strided ``[B, M]`` slice per gram byte, summed in int64 (each
+    product is below 2**40), so no ``[B, M, stride]`` intermediate."""
+    B, L = chunks.shape
+    M = -(-L // stride)
+    extra = -(-q // stride)  # whole zero cells covering the gram overhang
+    pad = torch.zeros((B, (M + extra) * stride - L), dtype=chunks.dtype,
+                      device=chunks.device)
+    ext = torch.cat([chunks, pad], dim=1)
+    code = torch.zeros((B, M), dtype=torch.int64, device=chunks.device)
+    for j in range(q):
+        col = ext[:, j : j + (M - 1) * stride + 1 : stride]
+        code += col.to(torch.int64) * pow(base, q - 1 - j, 1 << 32)
+    return to_i32(code & U32_MASK)
 
 
 def pack_corpus_words(chunks: torch.Tensor) -> torch.Tensor:
@@ -161,16 +219,23 @@ def filter_hits_sampled_vmem(
     plan) by a re-probe of the fine positional bloom.  Returns
     ``(grid_idx [capacity] in slot order, INT32_MAX-padded, long_word,
     short_word, n_final, n_coarse)``; retry bigger when either count
-    overflows."""
+    overflows.
+
+    Where the alignment gate fails (``stride % 4``, ``stride`` not
+    dividing ``L``, or ``cap_coarse > 128``) the per-row filter
+    :func:`_filter_hits_sampled_vmem_rows` serves instead, with the same
+    contract (``cap_coarse`` = survivors per 128-lane row, ``grid_idx``
+    ascending)."""
     from .filter_cuda import fused_sampled_extract
 
     B, L = chunks.shape
     M = -(-L // stride)
     if not (stride % 4 == 0 and L % stride == 0 and cap_coarse <= 128):
-        raise NotImplementedError(
-            "the per-row VMEM filter (alignment gate failed: stride % 4, "
-            "stride does not divide L, or cap_coarse > 128) is not ported "
-            "yet: ROADMAP queue 1 item 6"
+        return _filter_hits_sampled_vmem_rows(
+            table, words, chunks, lengths, min_long_len,
+            q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
+            log2_words=log2_words, fine_salts=fine_salts, shorts=shorts,
+            capacity=capacity, cap_coarse=cap_coarse,
         )
     dev = chunks.device
     prefix_on = (
@@ -248,6 +313,107 @@ def filter_hits_sampled_vmem(
     # slot order (block-major), not cell-ascending: window verify treats
     # slots independently and the host expansion re-orders
     return idx, lw, swo, n_final, cnt.max()
+
+
+def _filter_hits_sampled_vmem_rows(
+    table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
+    words: torch.Tensor,  # [2**log2_words] int32 positional bloom
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    min_long_len: torch.Tensor,  # scalar int32 (0 disables the long path)
+    *,
+    q: int,
+    stride: int,
+    log2_rows: int,
+    salts: Tuple[int, ...],
+    pack: int,
+    log2_words: int,
+    fine_salts: Tuple[int, ...],
+    shorts: Tuple[bytes, ...],
+    capacity: int,
+    cap_coarse: int,
+):
+    """Per-row sampled filter, for plans the fused kernel cannot take.
+
+    Stage 1: every grid cell's code probes the ``k`` bank blooms through
+    :func:`~.filter_cuda.bloom_word_vmem`; short-pattern starts are
+    exact.  Stage 1.5: survivors are rank-extracted per 128-lane grid row
+    into ``[mpr, R]`` slot arrays, slot ``k`` of row ``r`` holding its
+    ``(k+1)``-th hit (the reference's ``mpr`` masked one-lane sums; one
+    scatter here, equal because at most one lane of a row has a given
+    rank).  Stage 2: every slot re-probes the fine positional bloom;
+    the survivors are compacted and sorted back to ascending cells.
+
+    Returns ``(grid_idx [capacity] ascending, INT32_MAX-padded,
+    long_word, short_word, n_final, n_coarse)`` as device values (no host
+    synchronisation); ``n_coarse`` is the most hits of one row, so retry
+    with a bigger ``cap_coarse`` when it exceeds it and a bigger
+    ``capacity`` when ``n_final`` does."""
+    from .filter_cuda import bloom_word_vmem
+
+    B, L = chunks.shape
+    M = -(-L // stride)
+    dev = chunks.device
+    code = sampled_gram_codes(chunks, q, stride)
+    w = bloom_word_vmem(table, code, salts, log2_rows, pack)
+    w = torch.where(min_long_len > 0, w, 0)
+    if shorts:
+        sw = _short_start_words(chunks, lengths, shorts, stride, M)
+    else:
+        sw = torch.zeros((B, M), dtype=torch.int32, device=dev)
+
+    # stage 1.5: rank-extract survivors per 128-lane grid row
+    n_grid = B * M
+    R = -(-n_grid // 128)
+    mpr = min(max(cap_coarse, 1), 128)
+
+    def rows(x):
+        out = torch.zeros(R * 128, dtype=torch.int32, device=dev)
+        out[:n_grid] = x.reshape(-1)
+        return out.reshape(R, 128)
+
+    w2, sw2, code2 = rows(w), rows(sw), rows(code)
+    hit = (w2 | sw2) != 0
+    ranks = torch.cumsum(hit.to(torch.int32), dim=1, dtype=torch.int32)
+    n_coarse = ranks[:, -1].max()  # retry signal: > mpr means loss
+    n_slots = mpr * R
+    row_i = torch.arange(R, device=dev)[:, None]
+    lane_i = torch.arange(128, dtype=torch.int32, device=dev)
+    # every kept hit owns a distinct slot (rank - 1, row); the rest all
+    # land in one spare slot past the end, which is cut off
+    dst = torch.where(hit & (ranks <= mpr), (ranks.long() - 1) * R + row_i,
+                      n_slots).reshape(-1)
+
+    def slots(fill, values):
+        out = torch.full((n_slots + 1,), fill, dtype=torch.int32, device=dev)
+        out.scatter_(0, dst, values.reshape(-1))
+        return out[:n_slots]
+
+    lane_s = slots(-1, lane_i.expand(R, 128))
+    w_s = slots(0, w2)
+    sw_s = slots(0, sw2)
+    c_s = slots(0, code2)
+
+    # stage 2: every slot re-probes the fine positional bloom
+    wf = None
+    for salt in fine_salts:
+        widx = mul32(u32(c_s) ^ salt, KNUTH) >> (32 - log2_words)
+        probe = words[widx]
+        wf = probe if wf is None else (wf & probe)
+    w_s = w_s & wf
+
+    # compaction over the slot array, then back to ascending cells
+    alive = (w_s | sw_s) != 0
+    slot, n_final = blocked_nonzero(alive, capacity)
+    safe = torch.clamp(slot, max=n_slots - 1).long()
+    valid = slot < INT32_MAX
+    cell = lane_s[safe] + (safe % R).to(torch.int32) * 128
+    idx = torch.where(valid, cell, INT32_MAX)
+    lw = torch.where(valid, w_s[safe], 0)
+    swo = torch.where(valid, sw_s[safe], 0)
+    # ties only among the INT32_MAX pads, whose words are all 0
+    idx, perm = torch.sort(idx, stable=True)
+    return idx, lw[perm], swo[perm], n_final, n_coarse
 
 
 def _window_classes(byte_class, used_bytes, chunks, base, W):
@@ -459,3 +625,52 @@ def records_chain_vmem(
         capacity=cap_r, n_hits=cap_a,
     )
     return rc, rp, n, nr, nc
+
+
+def filter_candidates(
+    bloom_words: torch.Tensor,  # [n_stages, bits/32] int32
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    min_long_len: torch.Tensor,  # scalar int32 (0 disables the long path)
+    *,
+    n_classes: int,
+    q: int,
+    offsets: Tuple[int, ...],
+    log2_bits: int,
+    salts: Tuple[int, ...],
+    shorts: Tuple[bytes, ...],
+    capacity: int,
+):
+    """Anchored candidate starts.  Returns ``(start_idx [capacity],
+    n_candidates)``: flattened ``b * L + p`` ascending, INT32_MAX-padded.
+
+    A position is a candidate iff every bloom stage passes (a potential
+    long-pattern start with ``min_long_len`` bytes left in its row) or a
+    short pattern begins there exactly, and it lies inside its row.  The
+    stages are probed through :func:`~.filter_cuda.bloom_hit`: its kernel
+    on a CUDA bloom, :func:`bloom_hit_take` on a CPU one."""
+    from .filter_cuda import bloom_hit as hit
+
+    B, L = chunks.shape
+    dev = chunks.device
+    p_idx = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    if offsets:  # long-pattern bloom stages (absent in shorts-only plans)
+        cls = _classes(chunks, byte_class, used_bytes)
+        code = gram_codes(cls, q, n_classes)
+        pad = torch.zeros((B, max(offsets)), dtype=torch.int32, device=dev)
+        code_ext = torch.cat([code, pad], dim=1)
+        cand = torch.ones((B, L), dtype=torch.bool, device=dev)
+        for s, (off, salt) in enumerate(zip(offsets, salts)):
+            slots = bloom_slots(code_ext[:, off : off + L], log2_bits, salt)
+            cand &= hit(bloom_words[s], slots) != 0
+        cand &= p_idx + min_long_len <= lengths[:, None]
+        cand &= min_long_len > 0
+    else:
+        cand = torch.zeros((B, L), dtype=torch.bool, device=dev)
+    if shorts:
+        cand |= short_pattern_mask(chunks, shorts)
+    # any match from start p ends at >= p: drop starts past the row
+    cand &= p_idx < lengths[:, None]
+    return blocked_nonzero(cand.reshape(-1), capacity)

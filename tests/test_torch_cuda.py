@@ -17,8 +17,15 @@ torch = pytest.importorskip("torch")
 
 import php_aho_corasick_tpu_torch as port  # noqa: E402
 from php_aho_corasick_tpu_torch.ops.filter_cuda import (  # noqa: E402
+    _bank_probe_torch,
     _fused_extract_torch,
+    bloom_hit,
+    bloom_word_vmem,
     fused_sampled_extract,
+)
+from php_aho_corasick_tpu_torch.ops.filter_torch import (  # noqa: E402
+    bloom_hit_take,
+    u32,
 )
 from php_aho_corasick_tpu_torch.ops.scan_cuda import (  # noqa: E402
     _scan_states_tile_torch,
@@ -178,3 +185,75 @@ def test_tile_path_card_equals_cpu(cuda):
         np.testing.assert_array_equal(res[0][0][k], res[1][0][k])
     assert res[0][1] == res[1][1]
     assert res[0][0]["doc"].shape[0] > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,log2_rows,pack,n",
+    [
+        (7, 12, 4, 27_000_001 // 1000),  # the rows cell's plan, ragged n
+        (2, 15, 1, 5000),  # 256 KiB: over the shared budget, read from L2
+        (8, 13, 2, 131_073),
+        (3, 14, 4, 1),
+        (4, 12, 1, 128 * 1024),
+    ],
+)
+def test_bloom_word_vmem_matches_plain(cuda, k, log2_rows, pack, n):
+    rng = np.random.default_rng(k * 1000 + log2_rows)
+    rows = k * ((1 << log2_rows) // 128) // pack
+    table = rng.integers(-(2**31), 2**31, (rows, 128),
+                         dtype=np.int64).astype(np.int32)
+    codes = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+    t, c = torch.from_numpy(table).to(cuda), torch.from_numpy(codes).to(cuda)
+    before = bloom_word_vmem.launches
+    got = bloom_word_vmem(t, c, _salts(k), log2_rows, pack)
+    want = _bank_probe_torch(t, u32(c), _salts(k), log2_rows, pack)
+    torch.cuda.synchronize()
+    assert bloom_word_vmem.launches == before + 1
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2_bits,n", [(15, 1000), (17, 3_000_001),
+                                         (19, 77), (20, 1 << 20)])
+def test_bloom_hit_matches_plain(cuda, log2_bits, n):
+    rng = np.random.default_rng(log2_bits)
+    W = (1 << log2_bits) // 32
+    words = rng.integers(-(2**31), 2**31, W, dtype=np.int64).astype(np.int32)
+    slots = rng.integers(0, 1 << log2_bits, n).astype(np.int32)
+    w, s = torch.from_numpy(words).to(cuda), torch.from_numpy(slots).to(cuda)
+    before = bloom_hit.launches
+    got = bloom_hit(w, s)
+    want = bloom_hit_take(w, s)
+    torch.cuda.synchronize()
+    assert bloom_hit.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,alphabet", [
+    (13, b"abcdef"),  # the per-row filter (stride 5)
+    (7, b"abcdef"),  # anchored, bloom_hit
+    (20, bytes(range(97, 123))),  # 35-byte windows: host verify
+])
+def test_host_verify_and_rows_paths_card_equal_cpu(cuda, length, alphabet):
+    rng = np.random.default_rng(length)
+    pool = np.frombuffer(alphabet, np.uint8)
+    pats = sorted({rng.choice(pool, length).tobytes() for _ in range(2048)})
+    docs = [bytearray(rng.choice(pool, 20_000).tobytes()) for _ in range(40)]
+    for d in docs:
+        for _ in range(5):
+            o = int(rng.integers(0, 20_000 - length))
+            d[o : o + length] = pats[int(rng.integers(0, len(pats)))]
+    docs = [bytes(d) for d in docs]
+    specs = [{"id": i, "value": p} for i, p in enumerate(pats)]
+    cfg = port.ScanConfig(engine="cascade", chunk_len=4096)
+    res = []
+    for device in (cuda, "cpu"):
+        m = port.Matcher(specs, cfg, device=device)
+        res.append(m.match_arrays_many([m.device_corpus(docs)] * 2))
+    for a, b in zip(*res):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    assert res[0][0]["doc"].shape[0] >= 150

@@ -36,6 +36,22 @@ t.config = port.ScanConfig(backend="device")
 recs = port.ahocorasick_match("alFABETA gamma zetaomegaalfa!", t)
 assert t.stats.last_engine == "tile", t.stats.last_engine
 assert [(r["pos"], r["value"]) for r in recs] == [(28, "alfa"), (28, "lfa")]
+# the per-row sampled filter (stride 5) and the anchored cascade
+import numpy as np
+rng = np.random.default_rng(5)
+abc = np.frombuffer(b"abcdef", np.uint8)
+for n, length, mode, stride in ((2048, 13, "sampled", 5),
+                                (2048, 7, "anchored", 0)):
+    pats = sorted({rng.choice(abc, length).tobytes() for _ in range(n)})
+    m = port.Matcher([{"value": p} for p in pats],
+                     port.ScanConfig(engine="cascade", chunk_len=512),
+                     device="cpu")
+    assert (m.cascade_model.plan.mode, m.cascade_model.plan.stride) == (
+        mode, stride), m.cascade_model.plan.reason
+    doc = rng.choice(abc, 3000).tobytes() + pats[9] + b"xyz" * 10
+    res = m.match_arrays([doc])
+    assert (3000 + length, 9) in zip(res["pos"].tolist(),
+                                     res["pattern"].tolist()), res
 loaded = [n for n in sys.modules
           if n == "jax" or n.startswith("jax.")
           or n == "php_aho_corasick_tpu" or n.startswith("php_aho_corasick_tpu.")]

@@ -227,12 +227,19 @@ def test_unported_modes_raise():
 
 def test_alignment_gate_failure_raises():
     """A plan whose stride is no multiple of 4 cannot take the fused
-    filter; the port raises instead of running another filter."""
+    filter: the port serves it through the per-row filter, equal to the
+    JAX package, and raises only where the same plan asks for the take
+    filter, which is not ported."""
     rng = random.Random(3)
     pats = [bytes(rng.choice(b"abcdef") for _ in range(10))
             for _ in range(40)]
-    m = port.Matcher([{"value": p} for p in pats], port.ScanConfig(**CFG),
-                     device="cpu")
+    mj, m = _matchers(pats)
     assert m.cascade_model.plan.stride % 4, m.cascade_model.plan.reason
+    doc = b"abcdef" * 100 + pats[3] + b"fedcba" * 50 + pats[7]
+    _assert_same(mj.match_arrays([doc]), m.match_arrays([doc]))
+    assert m.match_arrays([doc])["doc"].shape[0] >= 2
+    m = port.Matcher([{"value": p} for p in pats],
+                     port.ScanConfig(**dict(CFG, bloom_impl="take")),
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        m.match_arrays([b"abcdef" * 100])
+        m.match_arrays([doc])
