@@ -69,7 +69,11 @@ ROWS_LEN = 13  # needle bytes of the rows path (plan stride 5)
 ANCHORED_LEN, ANCHORED_REPS, ANCHORED_PASSES = 7, 16, 3  # 32 MiB
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-NON_TENSOR_OPS_PER_S = 67e12  # its fp32 rate outside the tensor cores
+# The four kernels do 32-bit integer work, one instruction per counted
+# operation.  The H100 SXM runs int32 operations on 64 lanes per SM (half
+# its 128 fp32 lanes; NVIDIA Hopper architecture white paper): 132 SMs x 64
+# lanes x 1.98 GHz boost clock.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def log(*args):
@@ -100,12 +104,16 @@ def workload(seed=1337):
 
 
 def cuda_ms(fn, reps):
+    """Device ms per call of ``fn``: the card first sleeps ~1 ms a call,
+    so the host has queued every launch before the timed ones start and
+    the host's own time per call (~0.1 ms in a wrapper) is not counted."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * reps)
     t0.record()
     for _ in range(reps):
         fn()
@@ -193,7 +201,7 @@ def salt_probes(table, code, salts, log2_rows, pack):
 def bound_of(n_bytes, ops):
     """The larger of the memory and the operations floor, in ms."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", n_bytes, ops)
 
@@ -211,8 +219,12 @@ def assert_no_sync(torch, fn):
 def bound_ms(args, kw, out):
     """Least time for the fused filter on these inputs: each input read
     and each output written once over the memory rate, against the
-    integer operations this data needs (q-gram assembly, the salted probes
-    until the AND reaches zero, hit test) over the non-tensor rate."""
+    integer operations this data needs over the int32 rate: the q-gram
+    code (one dp4a per weight byte plane of each of its ceil(q/4) words,
+    then 3 shifts and 3 adds to join the four planes) and the salted
+    probes until the AND reaches zero, ~12 each (hash, address, load,
+    sub-word, AND).  The hit test, rank scan and slot writes are left
+    out, so this stays a floor."""
     import torch
 
     from php_aho_corasick_tpu_torch.ops.filter_torch import (
@@ -234,7 +246,7 @@ def bound_ms(args, kw, out):
                 * pow(GRAM_BASE, q - 1 - j, 1 << 32)) & U32_MASK
     probes = salt_probes(table, code, kw["salts"], kw["log2_rows"],
                          kw["pack"])
-    return bound_of(n_bytes, n * (4 * q + 4) + 12 * probes)
+    return bound_of(n_bytes, n * (4 * -(-q // 4) + 6) + 12 * probes)
 
 
 def phase_kernel_random(torch, fse, plain_fn):
@@ -260,6 +272,49 @@ def phase_kernel_random(torch, fse, plain_fn):
     torch.cuda.synchronize()
     err = compare(got, want, "random tables, shorts, pack=1")
     return int(got[4].sum().item()), err
+
+
+def phase_fused_cases(torch, fse, plain_fn):
+    """The fused kernel against its plain version over spc 1-4 x pack
+    1/2/4 x q 1/9/16 (prefix on and off, shorts on and off), tables over
+    the shared-memory budget; returns ``(cases, max_abs_err)``."""
+    rng = np.random.default_rng(4)
+    cases = [(3, 11, pack, spc, q, spc % 2 == 1, (spc + q + pack) % 2 == 0)
+             for spc in (1, 2, 3, 4) for pack in (1, 2, 4) for q in (1, 9, 16)]
+    cases += [
+        (4, 13, 1, 2, 9, True, True),  # 128 KiB of tables: read from L2
+        (8, 13, 1, 2, 9, False, True),  # 256 KiB
+        (5, 14, 1, 3, 16, True, False),  # 320 KiB, four words a code
+    ]
+    c = lambda x: torch.from_numpy(x).to(DEVICE)  # noqa: E731
+    n_blocks, err = 3, 0
+    R_pad = n_blocks * 1024
+    ptab = c(rng.integers(-(2**31), 2**31, (8, 128), dtype=np.int64)
+             .astype(np.int32))
+    for k, log2_rows, pack, spc, q, shorts, prefix in cases:
+        table = c(random_bank_table(rng, k, log2_rows, pack))
+        phases = c(rng.integers(-(2**31), 2**31, (spc, R_pad + 8, 128),
+                                dtype=np.int64).astype(np.int32))
+        sw = c((rng.integers(0, 2**31, (R_pad, 128))
+                * (rng.random((R_pad, 128)) < 0.01)).astype(np.int32))
+        args = (table, phases, sw if shorts else None,
+                torch.ones((1, 1), dtype=torch.int32, device=DEVICE))
+        salts = tuple((0x9E3779B9 * (2 * i + 1)) & 0xFFFFFFFF
+                      for i in range(k))
+        kw = dict(salts=salts, log2_rows=log2_rows, pack=pack, q=q, spc=spc,
+                  mpr=16, block_r=1024, n_grid=R_pad * 128 - 777,
+                  l16=12 if prefix else 0, prefix_on=prefix,
+                  prefix_table=ptab if prefix else None,
+                  prefix_salts=(0x7F4A7C15, 0x94D049BB) if prefix else (),
+                  prefix_log2=15 if prefix else 0)
+        want = plain_fn(args, kw)
+        got = fse(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, compare(got, want, (
+            f"fused k={k} 2^{log2_rows} pack={pack} spc={spc} q={q} "
+            f"shorts={shorts} prefix={prefix}")))
+        assert int(want[4].sum()) > 0, "no hits"
+    return len(cases), err
 
 
 def random_bank_table(rng, k, log2_rows, pack):
@@ -680,11 +735,83 @@ def phase_tile_random(torch, sst, plain_fn):
     return len(cases), err
 
 
+def ac_tables(torch, pats):
+    """The tile kernel's table arguments for the port's Aho-Corasick DFA
+    of ``pats`` (built on the host), and the automaton."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+
+    auto = Matcher([{"value": p} for p in pats], ScanConfig(backend="device"),
+                   device="cpu").automaton
+    c = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)  # noqa: E731
+    return (c(auto.table.reshape(-1).astype(np.int32)),
+            c(auto.byte_class.astype(np.int32)), c(auto.used_bytes)), auto
+
+
+def phase_tile_sync(torch, sst, plain_fn):
+    """The segmented walk (``sync_len`` = longest pattern) against the
+    plain walk on Aho-Corasick tables: the probe set, a set at S*C near
+    4096 with a 380-byte pattern, nonzero initial states, ragged and empty
+    rows, L not a multiple of 16, the longest pattern planted across the
+    segment boundaries; returns ``(cases, max_abs_err)``."""
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import tile_segment_plan
+
+    r6 = np.random.default_rng(6)
+    letters = np.frombuffer(ALPHABET, np.uint8)
+    near = {r6.choice(letters, r6.integers(1, 9)).tobytes()
+            for _ in range(60)}
+    near.add(r6.choice(letters, 380).tobytes())
+    sets = {"probe": probe_set(), "near-4096": sorted(near)}
+    cases = [("probe", 4096, 2176), ("probe", 999, 1000),
+             ("near-4096", 512, 4000), ("near-4096", 300, 2008),
+             ("probe", 7, 0)]
+    rng = np.random.default_rng(7)
+    c = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)  # noqa: E731
+    err = 0
+    for name, B, L in cases:
+        pats = sets[name]
+        tabs, auto = ac_tables(torch, pats)
+        assert auto.n_states * auto.n_classes <= 4096
+        longest = max(pats, key=len)
+        seg_len, n_seg, _ = tile_segment_plan(L, auto.max_len)
+        chunks = rng.choice(np.concatenate([letters, [0x20]]), (B, L))
+        chunks = chunks.astype(np.uint8)
+        for k in range(1, n_seg):
+            o = k * seg_len - len(longest) + 2
+            if 0 <= o <= L - len(longest):
+                chunks[::2, o : o + len(longest)] = np.frombuffer(longest,
+                                                                  np.uint8)
+        lengths = rng.integers(0, L + 1, B).astype(np.int32)
+        lengths[::5] = 0
+        lengths[1::3] = L
+        args = (*tabs, c(chunks),
+                c(rng.integers(0, auto.n_states, B).astype(np.int32)),
+                auto.n_classes)
+        got = sst(*args, lengths=c(lengths), sync_len=auto.max_len)
+        want = plain_fn(*args, c(lengths))
+        torch.cuda.synchronize()
+        err = max(err, compare(got, want, (
+            f"tile sync_len={auto.max_len} {name} S*C="
+            f"{auto.n_states * auto.n_classes} [{B}, {L}] {n_seg} "
+            f"segments a row")))
+    return len(cases), err
+
+
+def ptxas_lines(report, name):
+    """The compiler's register, spill and shared-memory lines of every
+    instantiation of kernel ``name``, counted."""
+    lines = {}
+    for ln in report[name]["log"].splitlines():
+        ln = ln.replace("ptxas info    :", "").strip()
+        if ln.startswith("Used") or "spill" in ln:
+            lines[ln] = lines.get(ln, 0) + 1
+    return "; ".join(f"{n}x {ln}" for ln, n in sorted(lines.items()))
+
+
 def tile_bound_ms(table, chunks, n_classes):
     """Least time for the tile scan of ``chunks``: the bytes read and the
     int32 states written once (plus table, class map, init, lengths and
     carry), against 3 operations per byte (class lookup, multiply-add,
-    table load) over the non-tensor rate."""
+    table load) over the int32 rate."""
     B, L = chunks.shape
     n_bytes = B * L * (1 + 4) + B * 4 * 3 + table.numel() * 4 + 256 * 4
     return bound_of(n_bytes, 3 * B * L)
@@ -720,7 +847,7 @@ TEST1_EXPECT = [
 ]
 
 
-def phase_tile_path(torch, base, card, sst, plain_fn):
+def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
     """The tile path at 32 MiB: route, timed passes, kernel against its
     bound, where the pass time goes, and the records against the host
     walk, the dense engine, the default capacity and ``match_many``."""
@@ -728,6 +855,7 @@ def phase_tile_path(torch, base, card, sst, plain_fn):
         Matcher, ScanConfig, ahocorasick_init, ahocorasick_match,
     )
     from php_aho_corasick_tpu_torch.ops.matches import expand_matches_arrays
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import tile_launch_shape
     from php_aho_corasick_tpu_torch.ops.scan_torch import compact_final_states
 
     pats = probe_set()
@@ -750,6 +878,7 @@ def phase_tile_path(torch, base, card, sst, plain_fn):
 
     # the path, counted and timed
     sst.launches = 0
+    sst.segmented_launches = 0
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -760,12 +889,15 @@ def phase_tile_path(torch, base, card, sst, plain_fn):
     launches = sst.launches
     ms = e0.elapsed_time(e1) / TILE_PASSES
     assert launches >= TILE_PASSES, f"tile kernel launched {launches} times"
+    assert sst.segmented_launches == launches, (
+        f"only {sst.segmented_launches} of {launches} tile launches walked "
+        f"the rows in segments (sync_len)")
     for key in res:
         assert np.array_equal(res[key], warm[key]), key
     n_rec = res["doc"].shape[0]
     log(f"tile path: match_arrays(handle) x {TILE_PASSES}: {ms:.3f} ms/pass "
         f"by CUDA events, {total / ms / 1e6:.3f} GB/s, {n_rec} matches/pass, "
-        f"kernel launches {launches}, on {card}")
+        f"kernel launches {launches} (all with sync_len), on {card}")
     trace_breakdown(torch, lambda n: [m.match_arrays(h) for _ in range(n)],
                     card)
 
@@ -775,12 +907,18 @@ def phase_tile_path(torch, base, card, sst, plain_fn):
     init = torch.zeros((B,), dtype=torch.int32, device=DEVICE)
     args = (dev["table_flat"], dev["byte_class"], dev["used_bytes"],
             h.chunks_d, init, auto.n_classes)
-    got = sst(*args, lengths=h.lengths_d)
+    sync = auto.max_len
+    got = sst(*args, lengths=h.lengths_d, sync_len=sync)
     want = plain_fn(*args, h.lengths_d)
     torch.cuda.synchronize()
-    err = compare(got, want, "tile kernel, probe table, 32 MiB")
-    k_ms = cuda_ms(lambda: sst(*args, lengths=h.lengths_d), 20)
+    err = compare(got, want, "tile kernel, probe table, 32 MiB, sync_len")
+    err = max(err, compare(sst(*args, lengths=h.lengths_d), want,
+                           "tile kernel, probe table, 32 MiB, whole rows"))
+    k_ms = cuda_ms(lambda: sst(*args, lengths=h.lengths_d, sync_len=sync),
+                   20)
+    w_ms = cuda_ms(lambda: sst(*args, lengths=h.lengths_d), 20)
     p_ms = cuda_ms(lambda: plain_fn(*args, h.lengths_d), 3)
+    shape = tile_launch_shape(dev["table_flat"].numel(), B, L, sync)
     b_ms, b_by, b_bytes, b_ops = tile_bound_ms(dev["table_flat"], h.chunks_d,
                                               auto.n_classes)
     states = got[0]
@@ -796,9 +934,11 @@ def phase_tile_path(torch, base, card, sst, plain_fn):
     t0 = time.perf_counter()
     expand_matches_arrays(auto, h.packed, flat[:n], flat[n:], n)
     x_ms = (time.perf_counter() - t0) * 1e3
-    log(f"scan_states_tile at [{B}, {L}]: {k_ms:.4f} ms (plain {p_ms:.3f} "
-        f"ms, bound {b_ms:.4f} ms by {b_by}: {b_bytes} bytes, {b_ops} ops) "
-        f"on {card}")
+    log(f"scan_states_tile at [{B}, {L}], sync_len {sync}: {k_ms:.4f} ms "
+        f"({100 * b_ms / k_ms:.1f}% of bound; one segment a row "
+        f"{w_ms:.4f} ms; plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by}: {b_bytes} bytes, {b_ops} ops) on {card}")
+    log(f"scan_states_tile launch: {shape}; {ptxas}")
     log(f"tile pass parts: kernel {k_ms:.4f} ms, compaction {c_ms:.4f} ms "
         f"(device), fetch of {n} positions {f_ms:.3f} ms, host expansion "
         f"{x_ms:.3f} ms (host clock), on {card}")
@@ -877,6 +1017,7 @@ def main():
     from php_aho_corasick_tpu_torch.ops.filter_cuda import (
         bloom_hit as bh,
         bloom_word_vmem as bwv,
+        fused_launch_shape,
         fused_sampled_extract as fse,
     )
     from php_aho_corasick_tpu_torch.ops.scan_cuda import (
@@ -894,16 +1035,22 @@ def main():
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(report)} "
         f"kernel(s); card: {card}")
     for name, r in report.items():
-        info = [ln for ln in r["log"].splitlines() if "ptxas info" in ln]
-        log(f"  {name}: {r['seconds']:.2f} s; " + " | ".join(info[-2:]))
+        log(f"  {name}: {r['seconds']:.2f} s; {ptxas_lines(report, name)}")
 
     # 2a. kernel vs plain: random tables, shorts, pack=1
     n_hits, err1 = phase_kernel_random(torch, fse, plain)
     log(f"kernel check 1 (random tables, shorts, pack=1): bit-equal, "
         f"{n_hits} hits")
+    n_fc, err_fc = phase_fused_cases(torch, fse, plain)
+    log(f"kernel check 1b (fused, {n_fc} cases: spc 1-4 x pack 1/2/4 x q "
+        f"1/9/16, prefix on/off, tables over the shared budget): "
+        f"bit-equal")
     n_cases, tile_err = phase_tile_random(torch, sst, _scan_states_tile_torch)
     log(f"kernel check 3 (scan_states_tile, {n_cases} random tables): "
         f"bit-equal")
+    n_sync, sync_err = phase_tile_sync(torch, sst, _scan_states_tile_torch)
+    log(f"kernel check 3b (scan_states_tile with sync_len, {n_sync} "
+        f"Aho-Corasick tables): bit-equal")
     n_vmem, vmem_err, n_hit, hit_err = phase_bloom_random(torch, bwv, bh)
     log(f"kernel check 4 (bloom_word_vmem, {n_vmem} random tables; "
         f"bloom_hit, {n_hit} random blooms): bit-equal")
@@ -942,8 +1089,23 @@ def main():
     p_ms = cuda_ms(lambda: plain(args, kw), 3)
     b_ms, b_by, b_bytes, b_ops = bound_ms(args, kw, got)
     log(f"fused_sampled_extract at the headline shape: {k_ms:.4f} ms "
-        f"(plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
-        f"{b_bytes} bytes, {b_ops} ops) on {card}")
+        f"({100 * b_ms / k_ms:.1f}% of bound; plain {p_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}: {b_bytes} bytes, {b_ops} ops) on {card}")
+    # where its time goes: no long codes at all (mll = 0: staging, the
+    # rank scan and the slot fill), and a zero table (every code dies in
+    # the first probes: the 4 unconditional ones, no queue)
+    table, phases, _, mll = args
+    no_codes = (table, phases, None, torch.zeros_like(mll))
+    one_probe = (torch.zeros_like(table), phases, None, mll)
+    a_ms = [cuda_ms(lambda: fse(*a, **kw), 50) for a in (no_codes, one_probe)]
+    log(f"fused_sampled_extract parts: {a_ms[0]:.4f} ms with no long codes "
+        f"(mll = 0), {a_ms[1]:.4f} ms with a zero table (code assembly and "
+        f"the first probes, nothing queued), {k_ms:.4f} ms with the plan's "
+        f"table, on {card}")
+    table_bytes = 4 * (args[0].numel() + kw["prefix_table"].numel())
+    shape = fused_launch_shape(kw["q"], table_bytes, n_blocks)
+    log(f"fused_sampled_extract launch: {shape}, {table_bytes} bytes of "
+        f"tables; {ptxas_lines(report, 'fused_sampled_extract')}")
 
     # the main path, counted and timed
     m.match_arrays_many([h] * BATCH)  # warm the batch structure
@@ -983,8 +1145,10 @@ def main():
 
     # 5. the tile path
     tile_kernel = phase_tile_path(torch, base, card, sst,
-                                  _scan_states_tile_torch)
-    tile_kernel["max_abs_err"] = max(tile_kernel["max_abs_err"], tile_err)
+                                  _scan_states_tile_torch,
+                                  ptxas_lines(report, "scan_states_tile"))
+    tile_kernel["max_abs_err"] = max(tile_kernel["max_abs_err"], tile_err,
+                                     sync_err)
 
     # 6. the rows path, 7. the anchored path
     rows_kernel = phase_rows_path(torch, base, card, bwv)
@@ -999,7 +1163,7 @@ def main():
         "source": "php_aho_corasick_tpu_torch/csrc/fused_sampled_extract.cu",
         "replaces": "php_aho_corasick_tpu/ops/filter_pallas.py:765",
         "launches": launches,
-        "max_abs_err": max(err1, err2),
+        "max_abs_err": max(err1, err_fc, err2),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": b_ms,

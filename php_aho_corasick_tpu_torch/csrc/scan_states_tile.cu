@@ -12,23 +12,34 @@
 //
 // What bounds it on an H100: the bytes are read once and the int32 states
 // written once (5 bytes per corpus byte, ~178 MB for a 32 MiB corpus, ~53
-// us at 3.35 TB/s).  But each row is one dependent chain of table loads,
-// one per byte, and only as many chains run as there are rows (~124 per SM
-// at 16384 rows), so the walk itself (~30 cycles per step) sits above the
-// memory floor.  The design keeps that chain in shared memory and off
-// device memory:
+// us at 3.35 TB/s); the walk is ~5 integer and shared-memory operations a
+// byte.  A row walked by one thread is one dependent chain of table loads
+// (~30 cycles a byte), and 16,384 rows are too few chains to cover that
+// latency, so the design cuts rows into many chains:
 //
+//   * segments: row b is cut into n_seg segments of seg_len bytes, one
+//     chain (thread) each.  Segment 0 walks from init_state[b].  Segment
+//     k >= 1 walks from state 0 over the `warm` bytes before it, writing
+//     nothing, then over its own bytes.  This is exact for an Aho-Corasick
+//     DFA whose patterns are at most `warm` bytes long: its state after any
+//     text is the longest suffix of the text that is a trie node, so it
+//     depends only on the last max_len bytes, whatever the start.  The
+//     wrapper plans the segments and passes n_seg = 1 unless the caller
+//     vouches for the table (`sync_len`);
 //   * the table (<= 4096 entries, widened to int32: <= 16 KiB) and the
 //     256-entry byte -> class map are staged in shared memory once per
-//     block; classifying through the map equals the reference's
+//     resident block (a grid-stride loop over the chains,
+//     grid_stride.cuh); classifying through the map equals the reference's
 //     compare-select, since byte_class[used_bytes[i]] == i + 1 and 0
 //     elsewhere;
-//   * one thread per row, 128 rows per block; the rows' bytes come through
-//     shared memory in tiles of 128 rows x 64 bytes with coalesced 16-byte
-//     loads (byte loads where L is not a multiple of 16);
-//   * each thread walks its 64 bytes with one dependent shared-memory load
-//     per byte and writes its states into a shared tile, which goes back to
-//     device memory coalesced (a warp stores 32 neighbouring states).
+//   * a thread reads its bytes 16 at a time straight into registers
+//     (one 16-byte load where L % 16 == 0), the next 16 loaded before the
+//     walk of these, so the load overlaps the walk;
+//   * each warp stages its 32 chains' 16 states a step in its own shared
+//     buffer (rows of 20 words: conflict-free 16-byte stores) and writes
+//     them back itself, 64 contiguous bytes per chain, so the int32 states,
+//     four fifths of the bytes, leave in whole sectors; no block-wide
+//     barrier after the staging of the tables.
 //
 // Plain C interface for ctypes; launches on the caller's stream, allocates
 // nothing, returns cudaGetLastError().
@@ -36,98 +47,170 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_stride.cuh"
+
 namespace {
 
-constexpr int kRows = 128;  // rows (threads) per block
-constexpr int kTile = 64;  // bytes per row per tile
-constexpr int kByteStride = kTile / 4 + 1;  // words per staged byte row (odd:
-// no bank conflicts between neighbouring rows)
-constexpr int kStateStride = kTile + 1;  // words per staged state row
+constexpr int kThreads = 256;  // 8 warps of 32 chains
+constexpr int kWarps = kThreads / 32;
+constexpr int kStep = 16;  // bytes a chain walks between write-backs
+constexpr int kBufStride = 20;  // words per chain row of a warp's buffer
 constexpr int kMaxEntries = 4096;
 
-size_t smem_bytes(int n_entries) {
-  return sizeof(int) * (static_cast<size_t>(n_entries) + 256 +
-                        kRows * kByteStride + kRows * kStateStride);
+// words of the staged table, rounded up so the warps' buffers that follow
+// it stay 16-byte aligned
+__host__ __device__ inline int table_words(int n_entries) {
+  return (n_entries + 3) & ~3;
 }
 
-__global__ void __launch_bounds__(kRows)
-    scan_states_tile_kernel(const int* __restrict__ table, int n_entries,
-                            const int* __restrict__ byte_class,
-                            const uint8_t* __restrict__ chunks,
-                            const int* __restrict__ init_state,
-                            const int* __restrict__ lengths, int B, int L,
-                            int n_classes, int vec16, int* __restrict__ states,
-                            int* __restrict__ carry) {
-  extern __shared__ int smem[];
-  int* s_table = smem;
-  int* s_class = s_table + n_entries;
-  uint32_t* s_bytes = reinterpret_cast<uint32_t*>(s_class + 256);
-  int* s_states = reinterpret_cast<int*>(s_bytes + kRows * kByteStride);
+size_t smem_bytes(int n_entries) {
+  return sizeof(int) * (static_cast<size_t>(table_words(n_entries)) + 256 +
+                        kWarps * 32 * kBufStride);
+}
 
-  const int tid = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  for (int i = tid; i < n_entries; i += kRows) s_table[i] = table[i];
-  for (int i = tid; i < 256; i += kRows) s_class[i] = byte_class[i];
+struct Params {
+  const int* table;
+  int n_entries;
+  const int* byte_class;
+  const uint8_t* chunks;
+  const int* init_state;
+  const int* lengths;  // null: every row is L bytes
+  long long n_chains;  // B * n_seg
+  int L;
+  int n_classes;
+  int seg_len;  // bytes per segment; a multiple of kStep when n_seg > 1
+  int n_seg;
+  int warm;  // bytes walked from state 0 before a segment k >= 1
+  int* states;
+  int* carry;
+};
 
-  const long long b = row0 + tid;
-  const bool live = b < B;
-  int s = live ? init_state[b] : 0;
-  const int len = live ? (lengths ? min(lengths[b], L) : L) : 0;
-  int c_out = s;  // carry: state after the last valid byte
-  const int n_rows = min(kRows, B - static_cast<int>(row0));
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int w = min(kTile, L - t0);  // valid bytes of this tile
-    __syncthreads();  // previous tile's states written back; tables staged
-    if (vec16 && w == kTile) {
-      // 4 threads per row, one 16-byte load each
-      for (int i = tid; i < n_rows * 4; i += kRows) {
-        const int r = i >> 2, q = i & 3;
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            chunks + (row0 + r) * L + t0 + q * 16);
-        uint32_t* dst = s_bytes + r * kByteStride + q * 4;
-        dst[0] = v.x;
-        dst[1] = v.y;
-        dst[2] = v.z;
-        dst[3] = v.w;
-      }
-    } else {
-      for (int i = tid; i < n_rows * (kTile / 4); i += kRows) {
-        const int r = i / (kTile / 4), q = i % (kTile / 4);
-        uint32_t word = 0;
-        for (int k = 0; k < 4; ++k) {
-          const int t = q * 4 + k;
-          if (t < w)
-            word |= static_cast<uint32_t>(chunks[(row0 + r) * L + t0 + t])
-                    << (8 * k);
-        }
-        s_bytes[r * kByteStride + q] = word;
-      }
-    }
-    __syncthreads();
-    if (live) {
-      const uint32_t* my = s_bytes + tid * kByteStride;
-      int* out = s_states + tid * kStateStride;
-      for (int q = 0; q < kTile / 4; ++q) {
-        const uint32_t word = my[q];
+// The 16 bytes of row `row` at [t, t + 16), zero past `end`.
+template <bool kVec>
+__device__ __forceinline__ uint4 load16(const uint8_t* row, int t, int end) {
+  if (kVec) return __ldg(reinterpret_cast<const uint4*>(row + t));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int c = s_class[(word >> (8 * k)) & 0xFF];
-          s = s_table[s * n_classes + c];
-          out[q * 4 + k] = s;
+  for (int j = 0; j < kStep; ++j) {
+    if (t + j < end)
+      w[j >> 2] |= static_cast<uint32_t>(__ldg(row + t + j)) << (8 * (j & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Walk the 4 bytes of `word` from state s; returns the 4 states.
+__device__ __forceinline__ int4 walk4(const int* s_table,
+                                      const int* s_class, int n_classes,
+                                      uint32_t word, int& s) {
+  int out[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int c = s_class[(word >> (8 * k)) & 0xFFu];
+    s = s_table[s * n_classes + c];
+    out[k] = s;
+  }
+  return make_int4(out[0], out[1], out[2], out[3]);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+    scan_states_tile_kernel(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) int smem[];
+  int* s_table = smem;
+  int* s_class = s_table + table_words(P.n_entries);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* buf = s_class + 256 + warp * 32 * kBufStride;
+  for (int i = threadIdx.x; i < P.n_entries; i += kThreads)
+    s_table[i] = __ldg(P.table + i);
+  for (int i = threadIdx.x; i < 256; i += kThreads)
+    s_class[i] = __ldg(P.byte_class + i);
+  __syncthreads();
+
+  const int C = P.n_classes;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  // warp-uniform loop: every lane runs every iteration, so the warp's
+  // write-back may synchronise it
+  for (long long base =
+           static_cast<long long>(blockIdx.x) * kThreads + warp * 32;
+       base < P.n_chains; base += step) {
+    const long long chain = base + lane;
+    const bool live = chain < P.n_chains;
+    const long long b = live ? chain / P.n_seg : 0;
+    const int k = live ? static_cast<int>(chain - b * P.n_seg) : 0;
+    const int t0 = k * P.seg_len;
+    const int t1 = live ? min(P.L, t0 + P.seg_len) : 0;
+    const int len =
+        live ? (P.lengths ? min(max(P.lengths[b], 0), P.L) : P.L) : 0;
+    const int last = len - 1;  // the carry's byte; -1: an empty row
+    const uint8_t* row = P.chunks + b * P.L;
+    int* out_row = P.states + b * P.L;
+    int s = 0;
+    if (live && k == 0) {
+      s = P.init_state[b];
+      if (last < 0) P.carry[b] = s;
+    }
+    // warm-up of segments k >= 1 (t0 - warm >= 0 by the plan)
+    if (live && k > 0) {
+      for (int t = t0 - P.warm; t < t0; t += kStep) {
+        const uint4 v = load16<kVec>(row, t, t0);
+        const int n = min(kStep, t0 - t);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < kStep; ++j) {
+          if (j < n) {
+            const int c = s_class[(w[j >> 2] >> (8 * (j & 3))) & 0xFFu];
+            s = s_table[s * C + c];
+          }
         }
       }
-      const int last = len - 1 - t0;
-      if (last >= 0 && last < w) c_out = out[last];
     }
-    __syncthreads();
-    // coalesced write-back: a warp stores 32 neighbouring states of a row
-    for (int i = tid; i < n_rows * kTile; i += kRows) {
-      const int r = i / kTile, j = i % kTile;
-      if (j < w) states[(row0 + r) * L + t0 + j] = s_states[r * kStateStride + j];
+    int n_steps = live ? (t1 - t0 + kStep - 1) / kStep : 0;
+    const int max_steps = __reduce_max_sync(0xFFFFFFFFu, n_steps);
+    uint4 nxt = n_steps > 0 ? load16<kVec>(row, t0, t1) : make_uint4(0, 0, 0, 0);
+    for (int i = 0; i < max_steps; ++i) {
+      const int t = t0 + i * kStep;
+      const bool mine = i < n_steps;
+      if (mine) {
+        const uint4 v = nxt;
+        if (i + 1 < n_steps) nxt = load16<kVec>(row, t + kStep, t1);
+        int4* dst = reinterpret_cast<int4*>(buf + lane * kBufStride);
+        dst[0] = walk4(s_table, s_class, C, v.x, s);
+        dst[1] = walk4(s_table, s_class, C, v.y, s);
+        dst[2] = walk4(s_table, s_class, C, v.z, s);
+        dst[3] = walk4(s_table, s_class, C, v.w, s);
+        if (last >= t && last < t + kStep && last < t1)
+          P.carry[b] = buf[lane * kBufStride + (last - t)];
+      }
+      __syncwarp();
+      // write-back: each chain's states of this step go to out_row + t
+      const long long dst_off =
+          mine ? (out_row - P.states) + t : -1;  // -1: nothing this step
+      const int n_valid = mine ? min(kStep, t1 - t) : 0;
+      if (kVec) {
+        // 8 chains a pass, 4 lanes of 16 bytes each
+#pragma unroll
+        for (int pass = 0; pass < 4; ++pass) {
+          const int src = pass * 8 + (lane >> 2), q = lane & 3;
+          const long long o = __shfl_sync(0xFFFFFFFFu, dst_off, src);
+          if (o >= 0) {
+            const int4 val = *reinterpret_cast<const int4*>(
+                buf + src * kBufStride + 4 * q);
+            *reinterpret_cast<int4*>(P.states + o + 4 * q) = val;
+          }
+        }
+      } else {
+        // 2 chains a pass, 16 lanes of 4 bytes each
+        for (int pass = 0; pass < 16; ++pass) {
+          const int src = pass * 2 + (lane >> 4), j = lane & 15;
+          const long long o = __shfl_sync(0xFFFFFFFFu, dst_off, src);
+          const int nv = __shfl_sync(0xFFFFFFFFu, n_valid, src);
+          if (o >= 0 && j < nv) P.states[o + j] = buf[src * kBufStride + j];
+        }
+      }
+      __syncwarp();
     }
   }
-  if (live) carry[b] = c_out;
 }
 
 }  // namespace
@@ -137,23 +220,59 @@ extern "C" int scan_states_tile_launch(const int* table, int n_entries,
                                        const uint8_t* chunks,
                                        const int* init_state,
                                        const int* lengths, int B, int L,
-                                       int n_classes, int* states, int* carry,
+                                       int n_classes, int seg_len, int n_seg,
+                                       int warm, int* states, int* carry,
                                        void* stream) {
   if (n_entries < 1 || n_entries > kMaxEntries || B < 0 || L < 0 ||
-      n_classes < 1)
+      n_classes < 1 || n_seg < 1 || warm < 0 || seg_len < 0 ||
+      static_cast<long long>(seg_len) * n_seg < L ||
+      (n_seg > 1 && (seg_len % kStep || warm % kStep || warm > seg_len)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = smem_bytes(n_entries);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_states_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  Params P;
+  P.table = table;
+  P.n_entries = n_entries;
+  P.byte_class = byte_class;
+  P.chunks = chunks;
+  P.init_state = init_state;
+  P.lengths = lengths;
+  P.n_chains = static_cast<long long>(B) * n_seg;
+  P.L = L;
+  P.n_classes = n_classes;
+  P.seg_len = seg_len;
+  P.n_seg = n_seg;
+  P.warm = warm;
+  P.states = states;
+  P.carry = carry;
+  // 16-byte loads and stores need every step to start 16-byte aligned
+  const bool vec = L % kStep == 0 &&
+                   reinterpret_cast<uintptr_t>(chunks) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(states) % 16 == 0;
+  auto kernel = vec ? scan_states_tile_kernel<true>
+                    : scan_states_tile_kernel<false>;
+  int blocks = 0;
+  const cudaError_t err = grid_stride::blocks_for(
+      reinterpret_cast<const void*>(kernel), kThreads,
+      smem_bytes(kMaxEntries), P.n_chains, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec16 = (L % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(chunks) % 16 == 0);
-  const int grid = (B + kRows - 1) / kRows;
-  scan_states_tile_kernel<<<grid, kRows, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      table, n_entries, byte_class, chunks, init_state, lengths, B, L,
-      n_classes, vec16, states, carry);
+  kernel<<<blocks, kThreads, smem_bytes(n_entries),
+           static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Grid, block and resident blocks per SM of the launch at these arguments
+// (for reports; launches nothing).
+extern "C" int scan_states_tile_shape(int n_entries, long long n_chains,
+                                      int vec, int* grid, int* block,
+                                      int* per_sm) {
+  auto kernel = vec ? scan_states_tile_kernel<true>
+                    : scan_states_tile_kernel<false>;
+  cudaError_t err = grid_stride::blocks_for(
+      reinterpret_cast<const void*>(kernel), kThreads,
+      smem_bytes(kMaxEntries), n_chains, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *block = kThreads;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel, kThreads, smem_bytes(n_entries));
+  return static_cast<int>(err);
 }

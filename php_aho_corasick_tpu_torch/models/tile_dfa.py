@@ -58,6 +58,8 @@ class TileDfaModel:
             init,
             n_classes=self.auto.n_classes,
             lengths=lengths,
+            # an Aho-Corasick DFA: its rows may be walked in segments
+            sync_len=self.auto.max_len,
         )
         idx, sts, n = compact_final_states(
             states, lengths, emit_from, dev["final_start"], capacity

@@ -34,6 +34,7 @@ package's own mirror of the Pallas kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -165,6 +166,20 @@ def group_rank_extract(w, sw, hval, block_r, mpr, n_blocks, n_grid):
     )
 
 
+def _plane_torch(phase_g, c, spc, tot):
+    """Word ``c`` (an offset from each cell's first word) of the first
+    ``tot`` grid cells: phase ``c mod spc`` shifted by ``c div spc``
+    cells, 0 before the corpus."""
+    ph, d = c % spc, c // spc
+    pf = phase_g[ph].reshape(-1)
+    if d >= 0:
+        return pf[d : d + tot]
+    # the corpus has no bytes before offset 0
+    return torch.cat(
+        [torch.zeros(-d, dtype=pf.dtype, device=pf.device), pf[: tot + d]]
+    )
+
+
 def _fused_extract_torch(
     table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
     block_r, n_blocks, n_grid, l16, prefix_on, prefix_table=None,
@@ -176,14 +191,7 @@ def _fused_extract_torch(
     dev = table.device
 
     def get_plane(c):
-        ph, d = c % spc, c // spc
-        pf = phase_g[ph].reshape(-1)
-        if d >= 0:
-            return pf[d : d + tot]
-        # the corpus has no bytes before offset 0
-        return torch.cat(
-            [torch.zeros(-d, dtype=pf.dtype, device=dev), pf[: tot + d]]
-        )
+        return _plane_torch(phase_g, c, spc, tot)
 
     code = torch.zeros(tot, dtype=torch.int64, device=dev)
     for j in range(q):
@@ -230,15 +238,71 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of ``fused_sampled_extract_launch`` (csrc/*.cu)
 _ARGTYPES = [
     _P, _LL,  # table, table words
-    _P, _LL, _I,  # phases, words per phase, spc
+    _P, _P, _P, _I,  # phases, word offsets, cell offsets, spc
     _P, _P, _LL, _P,  # sw, prefix table, prefix words, mll
     _P, _I, _I, _I,  # salts, k, log2_rows, pack
-    _P, _I, _I, _I, _I,  # gram weights, q, mpr, n_blocks, n_grid
+    _P, _I, _I, _I, _I,  # gram weight bytes, q, mpr, n_blocks, n_grid
     _P, _I, _I,  # prefix weights, l16, prefix_on
     _P, _I, _I,  # prefix salts, n prefix salts, prefix_log2
     _P, _P, _P, _P, _P,  # r_s, w_s, swo_s, h_s, cnt
     _P,  # stream
 ]
+#: word offsets ``c`` the kernel reads: ``[-FUSED_OFF_BIAS, FUSED_OFF_BIAS)``
+FUSED_OFF_BIAS = 8
+
+
+@functools.lru_cache(maxsize=64)
+def fused_word_offsets(spc: int, phase_words: int):
+    """For every word offset ``c`` in ``[-8, 8)`` (index ``c + 8``): the
+    flat offset into the ``[spc, phase_words]`` phases of word ``c`` of
+    cell 0, ``(c mod spc) * phase_words + c div spc``, and its cell offset
+    ``c div spc`` (floor division: the words before a cell's first lie in
+    earlier cells).  The kernel reads word ``c`` of cell ``g`` at
+    ``phases[woff[c + 8] + g]``, 0 where ``g + dcell[c + 8] < 0``."""
+    woff, dcell = [], []
+    for c in range(-FUSED_OFF_BIAS, FUSED_OFF_BIAS):
+        ph, d = c % spc, c // spc
+        woff.append(ph * phase_words + d)
+        dcell.append(d)
+    return tuple(woff), tuple(dcell)
+
+
+@functools.lru_cache(maxsize=64)
+def gram_weight_bytes(q: int):
+    """``[4][4]`` dp4a operands of the q-gram code: entry ``[c][m]`` packs
+    byte ``m`` of the weights ``GRAM_BASE^(q-1-j)`` of the bytes ``j = 4c
+    .. 4c+3`` of word ``c`` (0 past ``q``), so that the code is
+    ``sum_m 2^(8m) sum_c dp4a(word_c, gb[c][m])`` mod 2^32."""
+    w = [pow(GRAM_BASE, q - 1 - j, 1 << 32) if j < q else 0
+         for j in range(16)]
+    return tuple(tuple(sum(((w[4 * c + k] >> (8 * m)) & 0xFF) << (8 * k)
+                           for k in range(4)) for m in range(4))
+                 for c in range(4))
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_consts(spc, phase_words, q, l16, salts, prefix_salts):
+    """The fused kernel's per-configuration ctypes arrays, built once."""
+    woff, dcell = fused_word_offsets(spc, phase_words)
+    gram_b = [v for row in gram_weight_bytes(q) for v in row]
+    pref_w = [pow(GRAM_BASE, l16 - 1 - i, 1 << 32) for i in range(l16)]
+    return (
+        (ctypes.c_longlong * len(woff))(*woff),
+        (ctypes.c_int * len(dcell))(*dcell),
+        _u32_array(salts, len(salts)), _u32_array(gram_b, 16),
+        _u32_array(pref_w, max(l16, 1)),
+        _u32_array(prefix_salts, max(len(prefix_salts), 1)),
+    )
+
+
+def _fused_fn():
+    from ._build import load_library
+
+    fn = load_library("fused_sampled_extract").fused_sampled_extract_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch_cuda(
@@ -246,12 +310,7 @@ def _launch_cuda(
     n_blocks, n_grid, l16, prefix_on, prefix_table, prefix_salts,
     prefix_log2,
 ):
-    from ._build import load_library
-
-    lib = load_library("fused_sampled_extract")
-    fn = lib.fused_sampled_extract_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _fused_fn()
     dev = table.device
     out_shape = (n_blocks * mpr, 128)
     r_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
@@ -259,19 +318,18 @@ def _launch_cuda(
     swo_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
     h_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
     cnt = torch.empty((n_blocks, 128), dtype=torch.int32, device=dev)
-    gram_w = [pow(GRAM_BASE, q - 1 - j, 1 << 32) for j in range(q)]
-    pref_w = [pow(GRAM_BASE, l16 - 1 - i, 1 << 32) for i in range(l16)]
+    woff, dcell, salts_a, gram_b, pref_w, psalts_a = _launch_consts(
+        spc, phase_g.shape[1] * 128, q, l16, tuple(salts),
+        tuple(prefix_salts))
     rc = fn(
-        table.data_ptr(), table.numel(),
-        phase_g.data_ptr(), phase_g.shape[1] * 128, spc,
+        table.data_ptr(), table.numel(), phase_g.data_ptr(), woff, dcell,
+        spc,
         sw_g.data_ptr() if sw_g is not None else None,
         prefix_table.data_ptr() if prefix_table is not None else None,
         prefix_table.numel() if prefix_table is not None else 0,
         mll.data_ptr(),
-        _u32_array(salts, len(salts)), len(salts), log2_rows, pack,
-        _u32_array(gram_w, q), q, mpr, n_blocks, n_grid,
-        _u32_array(pref_w, max(l16, 1)), l16, int(bool(prefix_on)),
-        _u32_array(prefix_salts, max(len(prefix_salts), 1)),
+        salts_a, len(salts), log2_rows, pack, gram_b, q, mpr, n_blocks,
+        n_grid, pref_w, l16, int(bool(prefix_on)), psalts_a,
         len(prefix_salts), prefix_log2,
         r_s.data_ptr(), w_s.data_ptr(), swo_s.data_ptr(), h_s.data_ptr(),
         cnt.data_ptr(),
@@ -282,6 +340,22 @@ def _launch_cuda(
             f"fused_sampled_extract kernel launch failed: CUDA error {rc}"
         )
     return r_s, w_s, swo_s, h_s, cnt
+
+
+def fused_launch_shape(q: int, table_bytes: int, n_blocks: int) -> dict:
+    """Grid, block and resident blocks per SM of the fused kernel's launch
+    on the current CUDA device (launches nothing)."""
+    from ._build import load_library
+
+    fn = load_library("fused_sampled_extract").fused_sampled_extract_shape
+    fn.argtypes = [_I, _LL, _I, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    grid, block, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(q, table_bytes, n_blocks, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"fused_sampled_extract_shape: CUDA error {rc}")
+    return {"grid": grid.value, "block": block.value,
+            "blocks_per_sm": per_sm.value}
 
 
 def fused_sampled_extract(

@@ -13,6 +13,13 @@ On a CUDA tensor :func:`scan_states_tile` launches
 :func:`_scan_states_tile_torch`, the dense engine's loop
 (``ops/scan_torch.py``), which the tests hold bit for bit against the JAX
 package's kernel in interpret mode.
+
+The kernel may cut each row into segments walked in parallel
+(:func:`tile_segment_plan`).  A segment after the first starts from state
+0 a few bytes early; that is exact only for an Aho-Corasick DFA whose
+patterns are at most ``sync_len`` bytes long, so the caller that knows
+its table is one passes ``sync_len`` and every other call walks each row
+in one piece.
 """
 
 from __future__ import annotations
@@ -28,6 +35,27 @@ from .scan_torch import carry_states, scan_states
 #: most table entries the kernel stages in shared memory (widened to
 #: int32: 16 KiB) — the tile engine's eligibility bound
 TILE_MAX_ENTRIES = 4096
+#: shortest segment, and the step, in bytes, that segments are cut at
+TILE_MIN_SEGMENT, TILE_STEP = 64, 16
+
+
+def tile_segment_plan(L: int, sync_len: Optional[int]) -> Tuple[int, int, int]:
+    """``(seg_len, n_seg, warm)`` of the kernel's cut of ``L``-byte rows.
+
+    Segment ``k`` covers bytes ``[k * seg_len, min(L, (k+1) * seg_len))``;
+    segment 0 walks from the row's initial state, a later one from state 0
+    over the ``warm`` bytes before it (``sync_len`` rounded up to the
+    step), which is at most a quarter of a segment.  Without ``sync_len``,
+    or where one segment covers the row, a row is one segment."""
+    if sync_len is not None and sync_len < 0:
+        raise ValueError(f"sync_len={sync_len}: must be >= 0")
+    if sync_len is None:
+        return L, 1, 0
+    warm = -(-sync_len // TILE_STEP) * TILE_STEP
+    seg_len = max(TILE_MIN_SEGMENT, 4 * warm)
+    if seg_len >= L:
+        return L, 1, 0
+    return seg_len, -(-L // seg_len), warm
 
 
 def _scan_states_tile_torch(
@@ -52,6 +80,7 @@ _ARGTYPES = [
     _P, _I,  # table, entries
     _P, _P, _P, _P,  # byte_class, chunks, init_state, lengths
     _I, _I, _I,  # B, L, n_classes
+    _I, _I, _I,  # seg_len, n_seg, warm
     _P, _P,  # states, carry
     _P,  # stream
 ]
@@ -65,6 +94,7 @@ def scan_states_tile(
     init_state: torch.Tensor,  # [B] int32
     n_classes: int,
     lengths: Optional[torch.Tensor] = None,  # [B] int32; None: full rows
+    sync_len: Optional[int] = None,  # longest pattern of an AC table
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tile-engine DFA scan. Returns ``(states [B, L] int32, carry [B])``.
 
@@ -72,8 +102,14 @@ def scan_states_tile(
     (``states[b, lengths[b]-1]``; ``init_state[b]`` for empty rows), not
     ``states[:, -1]``, which pad bytes poison for rows shorter than ``L``.
 
+    ``sync_len`` says that ``table_flat`` is an Aho-Corasick DFA (its
+    state after any text depends only on the last ``sync_len`` bytes) and
+    lets the kernel walk segments of a row in parallel; leave it ``None``
+    for any other table.  The result is the same either way.
+
     A CUDA ``chunks`` launches the Hopper kernel (counted in
-    ``scan_states_tile.launches``); a CPU one runs the plain version."""
+    ``scan_states_tile.launches``, and in ``segmented_launches`` where it
+    cut the rows); a CPU one runs the plain version."""
     if not chunks.is_cuda:
         return _scan_states_tile_torch(
             table_flat, byte_class, used_bytes, chunks, init_state,
@@ -81,6 +117,7 @@ def scan_states_tile(
         )
     dev = chunks.device
     B, L = chunks.shape
+    seg_len, n_seg, warm = tile_segment_plan(L, sync_len)
     n_entries = table_flat.shape[0]
     if not 1 <= n_entries <= TILE_MAX_ENTRIES or n_entries % n_classes:
         raise ValueError(
@@ -108,7 +145,8 @@ def scan_states_tile(
         table_flat.data_ptr(), n_entries, byte_class.data_ptr(),
         chunks.data_ptr(), init_state.data_ptr(),
         lengths.data_ptr() if lengths is not None else None,
-        B, L, n_classes, states.data_ptr(), carry.data_ptr(),
+        B, L, n_classes, seg_len, n_seg, warm, states.data_ptr(),
+        carry.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -116,7 +154,30 @@ def scan_states_tile(
             f"scan_states_tile kernel launch failed: CUDA error {rc}"
         )
     scan_states_tile.launches += 1
+    if n_seg > 1:
+        scan_states_tile.segmented_launches += 1
     return states, carry
 
 
 scan_states_tile.launches = 0
+#: of those, the launches that walked rows in segments (``sync_len`` set)
+scan_states_tile.segmented_launches = 0
+
+
+def tile_launch_shape(n_entries: int, B: int, L: int,
+                      sync_len: Optional[int] = None) -> dict:
+    """Grid, block and resident blocks per SM of the kernel's launch on
+    ``[B, L]`` rows of the current CUDA device (launches nothing)."""
+    from ._build import load_library
+
+    _, n_seg, _ = tile_segment_plan(L, sync_len)
+    fn = load_library("scan_states_tile").scan_states_tile_shape
+    fn.argtypes = [_I, ctypes.c_longlong, _I, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    grid, block, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(n_entries, B * n_seg, int(L % TILE_STEP == 0),
+            ctypes.byref(grid), ctypes.byref(block), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"scan_states_tile_shape: CUDA error {rc}")
+    return {"grid": grid.value, "block": block.value,
+            "blocks_per_sm": per_sm.value, "segments_per_row": n_seg}

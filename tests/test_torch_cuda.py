@@ -46,22 +46,25 @@ def _salts(k):
     return tuple((0x9E3779B9 * (2 * i + 1)) & 0xFFFFFFFF for i in range(k))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "k,log2_rows,pack,spc,shorts,prefix,mpr",
-    [
-        (3, 12, 1, 2, True, False, 16),
-        (8, 12, 4, 2, False, True, 24),  # the headline plan's shapes
-        (8, 12, 4, 2, True, True, 128),
-        (2, 13, 2, 4, True, True, 8),  # stride 16
-        (4, 12, 1, 8, False, False, 32),  # stride 32: bit 31 alignments
-        (4, 13, 1, 2, True, True, 16),  # 128 KiB of tables in shared memory
-        (8, 13, 1, 2, False, True, 24),  # 256 KiB: tables read from memory
-    ],
-)
-def test_kernel_matches_plain(cuda, k, log2_rows, pack, spc, shorts, prefix,
-                              mpr):
-    rng = np.random.default_rng(k * 100 + spc)
+FUSED_CASES = [
+    # k, log2_rows, pack, spc, q, shorts, prefix, mpr
+    (3, 12, 1, 2, 9, True, False, 16),
+    (8, 12, 4, 2, 9, False, True, 24),  # the headline plan's shapes
+    (8, 12, 4, 2, 9, True, True, 128),
+    (2, 13, 2, 4, 9, True, True, 8),  # stride 16
+    (4, 12, 1, 8, 9, False, False, 32),  # stride 32: bit 31 alignments
+    (4, 13, 1, 2, 9, True, True, 16),  # 128 KiB of tables: over the budget
+    (8, 13, 1, 2, 9, False, True, 24),  # 256 KiB: tables read from memory
+    (5, 14, 1, 3, 16, True, True, 16),  # 320 KiB, spc 3, four words
+] + [
+    # every spc 1-4 x pack 1/2/4 x q 1/9/16, prefix on and off
+    (3, 11, pack, spc, q, spc % 2 == 1, (spc + q + pack) % 2 == 0, 16)
+    for spc in (1, 2, 3, 4) for pack in (1, 2, 4) for q in (1, 9, 16)
+]
+
+
+def _fused_case(cuda, k, log2_rows, pack, spc, shorts, prefix, seed):
+    rng = np.random.default_rng(seed)
     n_blocks = 5
     R_pad = n_blocks * 1024
     n_banks = (1 << log2_rows) // 128
@@ -81,22 +84,33 @@ def test_kernel_matches_plain(cuda, k, log2_rows, pack, spc, shorts, prefix,
 
     args = (c(table), c(phases), c(sw) if shorts else None,
             torch.ones((1, 1), dtype=torch.int32, device=cuda))
-    n_grid = R_pad * 128 - 999
-    l16 = 12 if prefix else 0
-    pt = c(ptab) if prefix else None
-    ps = PREFIX_SALTS if prefix else ()
-    pl = 15 if prefix else 0
+    kw = dict(n_grid=R_pad * 128 - 999, l16=12 if prefix else 0,
+              prefix_on=prefix, prefix_table=c(ptab) if prefix else None,
+              prefix_salts=PREFIX_SALTS if prefix else (),
+              prefix_log2=15 if prefix else 0)
+    return args, kw, n_blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,log2_rows,pack,spc,q,shorts,prefix,mpr", FUSED_CASES)
+def test_kernel_matches_plain(cuda, k, log2_rows, pack, spc, q, shorts,
+                              prefix, mpr):
+    args, kw, n_blocks = _fused_case(cuda, k, log2_rows, pack, spc, shorts,
+                                     prefix, k * 100 + spc * 10 + q)
+    before = fused_sampled_extract.launches
     got = fused_sampled_extract(
-        *args, salts=_salts(k), log2_rows=log2_rows, pack=pack, q=9,
-        spc=spc, mpr=mpr, n_grid=n_grid, l16=l16, prefix_on=prefix,
-        prefix_table=pt, prefix_salts=ps, prefix_log2=pl,
+        *args, salts=_salts(k), log2_rows=log2_rows, pack=pack, q=q,
+        spc=spc, mpr=mpr, **kw,
     )
     want = _fused_extract_torch(
-        *args, _salts(k), log2_rows, pack, 9, spc, mpr, 1024, n_blocks,
-        n_grid, l16, prefix, prefix_table=pt, prefix_salts=ps,
-        prefix_log2=pl,
+        *args, _salts(k), log2_rows, pack, q, spc, mpr, 1024, n_blocks,
+        kw["n_grid"], kw["l16"], kw["prefix_on"],
+        prefix_table=kw["prefix_table"], prefix_salts=kw["prefix_salts"],
+        prefix_log2=kw["prefix_log2"],
     )
     torch.cuda.synchronize()
+    assert fused_sampled_extract.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got[4].sum()) > 0
@@ -163,6 +177,76 @@ def test_tile_kernel_matches_plain(cuda, S, U, B, L, dtype, with_lengths):
     assert scan_states_tile.launches == before + 1
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == torch.int32
+        assert torch.equal(a, b)
+
+
+def _ac_table(pats):
+    """The port's Aho-Corasick DFA of ``pats`` (built on the CPU)."""
+    m = port.Matcher([{"value": p} for p in pats],
+                     port.ScanConfig(backend="device"), device="cpu")
+    return m.automaton
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "which,B,L",
+    [
+        ("probe", 16384 // 16, 2176),  # the tile cell's set and row length
+        ("probe", 300, 1000),  # L % 16 != 0: byte loads, short segments
+        ("near4096", 200, 4000),  # S*C = 4004, a 380-byte pattern
+        ("near4096", 64, 777),  # one segment a row: L < 4 * sync_len
+        ("probe", 5, 0),  # no bytes: carry = init
+    ],
+)
+def test_tile_kernel_sync_len_matches_plain(cuda, which, B, L):
+    """The segmented walk (``sync_len`` = the automaton's longest pattern)
+    against the plain walk on Aho-Corasick tables, with nonzero initial
+    states, ragged and empty rows, and the longest pattern planted across
+    segment boundaries."""
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import tile_segment_plan
+
+    rng = np.random.default_rng(B + L)
+    if which == "probe":
+        r3 = np.random.default_rng(3)
+        pats = sorted({bytes(r3.integers(97, 103, r3.integers(4, 9))
+                             .astype(np.uint8)) for _ in range(40)})
+        letters = np.arange(97, 103, dtype=np.uint8)
+    else:
+        r6 = np.random.default_rng(6)
+        letters = np.arange(97, 103, dtype=np.uint8)
+        pats = {r6.choice(letters, r6.integers(1, 9)).tobytes()
+                for _ in range(60)}
+        pats.add(r6.choice(letters, 380).tobytes())
+        pats = sorted(pats)
+    auto = _ac_table(pats)
+    assert auto.n_states * auto.n_classes <= 4096
+    longest = max(pats, key=len)
+    seg_len, n_seg, _ = tile_segment_plan(L, auto.max_len)
+    chunks = rng.choice(np.concatenate([letters, [0x20]]), (B, L))
+    chunks = chunks.astype(np.uint8)
+    for k in range(1, n_seg):
+        o = k * seg_len - len(longest) + 2
+        if 0 <= o <= L - len(longest):
+            chunks[::2, o : o + len(longest)] = np.frombuffer(longest,
+                                                              np.uint8)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[::5] = 0
+    lengths[1::3] = L
+
+    def c(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    args = (c(auto.table.reshape(-1).astype(np.int32)),
+            c(auto.byte_class.astype(np.int32)), c(auto.used_bytes),
+            c(chunks), c(rng.integers(0, auto.n_states, B).astype(np.int32)),
+            auto.n_classes)
+    before = scan_states_tile.launches
+    got = scan_states_tile(*args, lengths=c(lengths),
+                           sync_len=auto.max_len)
+    want = _scan_states_tile_torch(*args, c(lengths))
+    torch.cuda.synchronize()
+    assert scan_states_tile.launches == before + 1
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 

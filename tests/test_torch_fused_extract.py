@@ -127,3 +127,66 @@ def test_fused_extract_headline_config(mpr):
     assert int((r_s >= 0).sum()) == int(np.minimum(cnt, mpr).sum())
     # the refinement zeroed some extracted words
     assert int(((r_s >= 0) & (w_s == 0)).sum()) > 0
+
+
+@pytest.mark.parametrize("spc", range(1, 9))
+def test_kernel_word_offsets_equal_plain_planes(spc):
+    """The (phase, cell offset) table the wrapper hands the CUDA kernel
+    reads the same word as the plain version's plane for every offset the
+    kernel uses: the gram words ``[0, 4)`` and the prefix windows from
+    ``c_min = -spc`` on, including the zero words before cell 0."""
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        FUSED_OFF_BIAS, _plane_torch, _window_offsets, fused_word_offsets,
+    )
+
+    rng = np.random.default_rng(spc)
+    rows = 3
+    phases = torch.from_numpy(rng.integers(
+        -(2**31), 2**31, (spc, rows + 8, 128), dtype=np.int64
+    ).astype(np.int32))
+    tot = rows * 128
+    woff, dcell = fused_word_offsets(spc, (rows + 8) * 128)
+    flat = phases.reshape(-1)
+    g = torch.arange(tot)
+    c_min = _window_offsets(spc)
+    assert c_min == -spc
+    # the kernel loads the prefix window's words from c_min + x0 // 4 on,
+    # six of them at most (l16 <= 20): offsets up to 5
+    for c in range(c_min, 6):
+        i = c + FUSED_OFF_BIAS
+        idx = woff[i] + g
+        got = torch.where(g + dcell[i] >= 0, flat[idx.clamp(min=0)], 0)
+        assert torch.equal(got, _plane_torch(phases, c, spc, tot)), c
+
+
+@pytest.mark.parametrize("q", range(1, 17))
+def test_kernel_gram_code_dp4a_equals_polynomial(q):
+    """The kernel's code assembly (four dp4a byte products a word, partial
+    sums joined by shifts) equals sum_j byte_j * GRAM_BASE^(q-1-j) mod
+    2^32."""
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import gram_weight_bytes
+    from php_aho_corasick_tpu_torch.ops.filter_torch import GRAM_BASE
+
+    gb = gram_weight_bytes(q)
+
+    def dp4a_code(words):
+        # __dp4a(word, gb[c][m], acc[m]) summed over the words, then joined
+        acc = [0, 0, 0, 0]
+        for c, word in enumerate(words):
+            for m in range(4):
+                acc[m] += sum(((word >> (8 * k)) & 0xFF)
+                              * ((gb[c][m] >> (8 * k)) & 0xFF)
+                              for k in range(4))
+        return (acc[0] + (acc[1] << 8) + (acc[2] << 16)
+                + (acc[3] << 24)) % (1 << 32)
+
+    rng = np.random.default_rng(q)
+    n_words = (q - 1) // 4 + 1
+    for _ in range(20):
+        data = rng.integers(0, 256, 4 * n_words)
+        data[: rng.integers(0, 4 * n_words)] = 255  # saturated bytes too
+        words = [int(sum(int(data[4 * c + k]) << (8 * k) for k in range(4)))
+                 for c in range(n_words)]
+        want = sum(int(data[j]) * pow(GRAM_BASE, q - 1 - j, 1 << 32)
+                   for j in range(q)) % (1 << 32)
+        assert dp4a_code(words) == want

@@ -186,3 +186,159 @@ def test_byte_class_equals_compare_select(U):
     select = scan_torch.classify_bytes(chunks, used)
     assert torch.equal(bc[chunks.long()], select)
     assert torch.equal(scan_torch._classes(chunks, bc, used), select)
+
+
+def _ac_automaton(seed, n_letters, n_patterns, long_len=0):
+    """An Aho-Corasick DFA the port builds: ``n_patterns`` random patterns
+    of 1-8 letters from the first ``n_letters`` of ``a-z`` (plus one of
+    ``long_len`` letters); returns it, the letters and its longest
+    pattern."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+
+    rng = np.random.default_rng(seed)
+    letters = np.arange(97, 97 + n_letters, dtype=np.uint8)
+    pats = {rng.choice(letters, rng.integers(1, 9)).tobytes()
+            for _ in range(n_patterns)}
+    if long_len:
+        pats.add(rng.choice(letters, long_len).tobytes())
+    m = Matcher([{"value": p} for p in sorted(pats)],
+                ScanConfig(backend="device"), device="cpu")
+    return m.automaton, letters, max(pats, key=len)
+
+
+AC_SETS = [
+    (1, 2, 6, 0),
+    (2, 3, 20, 0),
+    (3, 4, 40, 0),
+    (4, 5, 60, 0),
+    (5, 6, 40, 30),
+    # near the tile bound: S * C = 4004 of 4096, one 380-letter pattern
+    (6, 6, 60, 380),
+]
+
+
+def _walk(auto, states, text_classes):
+    for c in text_classes:
+        states = auto.lookup(states, c)
+    return states
+
+
+@pytest.mark.parametrize("seed,n_letters,n_patterns,long_len", AC_SETS)
+def test_ac_state_resynchronises_after_max_len(seed, n_letters, n_patterns,
+                                               long_len):
+    """The property the segmented tile walk rests on: after ``max_len``
+    bytes an Aho-Corasick DFA's state no longer depends on where the walk
+    started, so at every offset ``o >= max_len`` the walk from root over
+    ``[o - max_len, o)`` equals the full walk from any initial state."""
+    auto, letters, _ = _ac_automaton(seed, n_letters, n_patterns, long_len)
+    S, C = auto.n_states, auto.n_classes
+    if seed == 6:
+        assert 4000 <= S * C <= 4096 and auto.max_len == 380
+    rng = np.random.default_rng(seed + 100)
+    n_rows, L = 16, auto.max_len + 40
+    pool = np.concatenate([letters, [0x20]])  # a byte of no pattern too
+    text = rng.choice(pool, (n_rows, L)).astype(np.uint8)
+    cls = auto.byte_class[text]
+    full = rng.integers(0, S, n_rows).astype(np.int64)
+    states = np.empty((n_rows, L), np.int64)
+    for t in range(L):
+        full = auto.lookup(full, cls[:, t])
+        states[:, t] = full
+    M = auto.max_len
+    for o in range(M, L + 1):
+        root = _walk(auto, np.zeros(n_rows, np.int64), cls[:, o - M : o].T)
+        np.testing.assert_array_equal(root, states[:, o - 1])
+
+
+def _segmented_walk(auto, chunks, init, lengths, sync_len):
+    """Numpy model of the CUDA tile kernel under the wrapper's segment
+    plan: segment 0 from ``init``, segment k >= 1 from state 0 over the
+    ``warm`` bytes before it; the carry from the segment holding the last
+    valid byte."""
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import tile_segment_plan
+
+    B, L = chunks.shape
+    seg_len, n_seg, warm = tile_segment_plan(L, sync_len)
+    assert seg_len * n_seg >= L and (n_seg == 1 or warm <= seg_len // 4)
+    cls = auto.byte_class[chunks]
+    states = np.full((B, L), -1, np.int64)
+    carry = np.asarray(init, np.int64).copy()
+    for k in range(n_seg):
+        t0, t1 = k * seg_len, min(L, (k + 1) * seg_len)
+        if k == 0:
+            s = np.asarray(init, np.int64).copy()
+        else:
+            assert t0 - warm >= 0
+            s = _walk(auto, np.zeros(B, np.int64), cls[:, t0 - warm : t0].T)
+        for t in range(t0, t1):
+            s = auto.lookup(s, cls[:, t])
+            states[:, t] = s
+            carry = np.where(lengths - 1 == t, s, carry)
+    return states, carry
+
+
+@pytest.mark.parametrize(
+    "set_i,B,L,sync",
+    [
+        (2, 9, 300, "max_len"),  # L % 16 != 0: a short last segment
+        (3, 7, 64 * 5, "max_len"),  # whole segments
+        (5, 5, 400, "max_len"),  # 30-byte pattern: 32-byte warm-up
+        (6, 3, 3300, "max_len"),  # 380-byte pattern: 1536-byte segments
+        (6, 3, 250, "max_len"),  # L < sync_len: one segment
+        (4, 6, 500, None),  # no sync_len: one segment
+        (1, 4, 0, "max_len"),  # no bytes: carry = init
+    ],
+)
+def test_segmented_tile_walk_equals_plain(set_i, B, L, sync):
+    """The segment plan with ``sync_len = max_len`` on an Aho-Corasick
+    DFA gives the plain walk's states and carry, for ragged, empty and
+    full rows and nonzero initial states."""
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import tile_segment_plan
+
+    auto, letters, longest = _ac_automaton(*AC_SETS[set_i - 1])
+    sync_len = auto.max_len if sync == "max_len" else None
+    seg_len, n_seg, warm = tile_segment_plan(L, sync_len)
+    if (set_i, L) in ((3, 320), (2, 300), (5, 400), (6, 3300)):
+        assert n_seg > 1
+    if sync is None or L <= 4 * auto.max_len:
+        assert n_seg == 1
+    rng = np.random.default_rng(set_i * 1000 + L)
+    pool = np.concatenate([letters, [0x20]])
+    chunks = rng.choice(pool, (B, L)).astype(np.uint8)
+    # the longest pattern ending just past every segment boundary: a
+    # warm-up shorter than it would lose the match
+    n = len(longest)
+    for k in range(1, n_seg):
+        o = k * seg_len - n + 2
+        if 0 <= o <= L - n:
+            chunks[:, o : o + n] = np.frombuffer(longest, np.uint8)
+    init = rng.integers(0, auto.n_states, B).astype(np.int32)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[0], lengths[-1] = 0, L
+    got_s, got_c = _segmented_walk(auto, chunks, init, lengths, sync_len)
+    t = torch.from_numpy
+    want_s, want_c = _scan_states_tile_torch(
+        t(auto.table.reshape(-1).astype(np.int32)),
+        t(auto.byte_class.astype(np.int32)), t(auto.used_bytes),
+        t(chunks), t(init), auto.n_classes, t(lengths),
+    )
+    np.testing.assert_array_equal(got_s, want_s.numpy())
+    np.testing.assert_array_equal(got_c, want_c.numpy())
+
+
+@pytest.mark.parametrize(
+    "L,sync_len,want",
+    [
+        (2176, 8, (64, 34, 16)),  # the tile cell: the probe set's 8 bytes
+        (2176, None, (2176, 1, 0)),
+        (2176, 0, (64, 34, 0)),  # the empty automaton: no warm-up
+        (2176, 17, (128, 17, 32)),
+        (1000, 300, (1000, 1, 0)),  # a segment would cover the row
+        (64, 3, (64, 1, 0)),
+        (0, 5, (0, 1, 0)),
+    ],
+)
+def test_tile_segment_plan(L, sync_len, want):
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import tile_segment_plan
+
+    assert tile_segment_plan(L, sync_len) == want
