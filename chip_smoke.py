@@ -3,6 +3,8 @@
 them.
 
 Run from the repository root:  python3 chip_smoke.py
+(``--parent CSRC`` also times another checkout's ``bloom_word_vmem``,
+built from its ``csrc`` directory, beside this tree's.)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -32,9 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. the rows path: 2048 needles x 13 bytes over ``abcdef`` (plan q=9,
    stride 5: the per-row filter on ``bloom_word_vmem``) against the
    headline's 128 MiB, ``match_arrays_many([handle] * 12)`` timed, counted
-   and sync-checked as in 3; the kernel on the plan's table at this shape;
-   a 64 MiB copy with needles planted at 1e-5 (all found, 8 MiB equal to
-   the host walk);
+   and sync-checked as in 3; the kernel on the plan's table at this shape,
+   with its parts (a table of zeros, a table of ones) and its profiler
+   device time (beside another checkout's with ``--parent CSRC``); a
+   64 MiB copy with needles planted at 1e-5 (all found, 8 MiB equal to the
+   host walk);
 7. the anchored path: 2048 needles x 7 bytes over ``abcdef`` (anchored
    plan, q=7, one 2^17-bit stage) with ``engine="cascade"`` against 32 MiB
    of the base documents: ``match_arrays(handle)`` timed, its ``bloom_hit``
@@ -44,9 +48,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 8. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 2-8, 2^12-2^15-word
-tables, one over the shared-memory budget, ragged code counts) and
-``bloom_hit`` (blooms of 2^15-2^20 bits) against their plain versions.
+Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 1-8, 2^12-2^15-word
+tables, some over the shared-memory budget, ragged code counts down to 1,
+code views 1-3 elements past a 16-byte boundary, tables of zeros and of
+ones) and ``bloom_hit`` (blooms of 2^15-2^20 bits) against their plain
+versions.
 """
 
 import json
@@ -120,6 +126,64 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def profiler_ms(torch, fn, reps, name):
+    """Device ms per launch of the kernels whose name holds ``name``, by
+    ``torch.profiler`` over ``reps`` calls of ``fn`` (``None`` when the
+    profiler saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            total += t if t is not None else e.self_cuda_time_total
+            count += e.count
+    return total / 1e3 / count if count else None
+
+
+def parent_bloom_word_vmem(csrc):
+    """``bloom_word_vmem`` of another checkout, built from its ``csrc``
+    directory (``--parent``) with this tree's nvcc flags: its C entry
+    point takes the same arguments, so it runs on the same tensors.
+    Returns ``run(table, codes, salts, log2_rows, pack)``."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from php_aho_corasick_tpu_torch.ops import _build
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        BLOOM_WORD_VMEM_ARGTYPES, _u32_array,
+    )
+
+    src = Path(csrc) / "bloom_word_vmem.cu"
+    out = _build.BUILD_DIR / "parent" / "libbloom_word_vmem.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
+                    "-o", str(out), str(src)], check=True)
+    fn = ctypes.CDLL(str(out)).bloom_word_vmem_launch
+    fn.argtypes = BLOOM_WORD_VMEM_ARGTYPES["bloom_word_vmem_launch"]
+    fn.restype = ctypes.c_int
+
+    def run(table, codes, salts, log2_rows, pack):
+        res = torch.empty_like(codes)
+        rc = fn(table.data_ptr(), table.numel(), codes.data_ptr(),
+                res.data_ptr(), codes.numel(), _u32_array(salts, len(salts)),
+                len(salts), log2_rows, pack,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent bloom_word_vmem: CUDA error {rc}")
+        return res
+
+    return run
 
 
 def compare(got, want, what):
@@ -337,27 +401,57 @@ def phase_bloom_random(torch, bwv, bh):
     rng = np.random.default_rng(2)
     c = lambda x: torch.from_numpy(x).to(DEVICE)  # noqa: E731
     vmem_cases = [
-        (2, 12, 4, 1000),
-        (8, 12, 4, 3 * 4097 + 5),
-        (3, 13, 2, 777_777),
-        (2, 12, 1, 128),  # 32 KiB in shared memory
-        (5, 14, 1, 100_003),  # 320 KiB: over the budget, read from L2
-        (8, 15, 4, 12_345),  # 256 KiB: over the budget
-        (7, 15, 2, 2_000_001),
+        # k, log2_rows, pack, n, codes' offset from 16 bytes, table fill
+        (2, 12, 4, 1000, 0, None),
+        (8, 12, 4, 3 * 4097 + 5, 0, None),
+        (3, 13, 2, 777_777, 0, None),
+        (2, 12, 1, 128, 0, None),  # 32 KiB in shared memory
+        (5, 14, 1, 100_003, 0, None),  # 320 KiB: over the budget, from L2
+        (8, 15, 4, 12_345, 0, None),  # 256 KiB: over the budget
+        (7, 15, 2, 2_000_001, 0, None),
+        # n of 1, 3 and 4m + 1, views 1-3 elements past 16 bytes (the
+        # wrapper's output lies at the same offset)
+        (7, 12, 4, 1, 1, None),
+        (7, 12, 4, 3, 2, None),
+        (7, 12, 4, 4 * 100_003 + 1, 1, None),
+        (7, 12, 4, 4 * 100_003 + 1, 2, None),
+        (7, 12, 4, 4 * 100_003 + 1, 3, None),
+        (5, 14, 1, 4 * 9_999 + 1, 3, None),  # misaligned, from L2
+        # k = 1 and 8
+        (1, 12, 4, 4 * 50_000 + 1, 1, None),
+        (8, 12, 4, 4 * 50_000 + 1, 2, None),
+        (1, 15, 1, 4 * 5_000 + 3, 0, None),
+        (8, 12, 1, 4 * 5_000 + 3, 3, None),
+        # a table of zeros (every AND ends after the first probes) and one
+        # of ones (every code takes all k probes)
+        (7, 12, 4, 4 * 100_003 + 1, 1, 0),
+        (7, 12, 4, 4 * 100_003 + 1, 2, -1),
+        (8, 13, 2, 4 * 10_007 + 2, 0, -1),
+        (8, 15, 4, 4 * 10_007 + 3, 3, -1),  # ones, over the budget
     ]
     err_v = 0
-    for k, log2_rows, pack, n in vmem_cases:
+    for k, log2_rows, pack, n, off, fill in vmem_cases:
         salts = tuple((0x9E3779B9 * (2 * i + 1)) & 0xFFFFFFFF
                       for i in range(k))
-        table = c(random_bank_table(rng, k, log2_rows, pack))
-        codes = c(rng.integers(-(2**31), 2**31, n, dtype=np.int64)
-                  .astype(np.int32))
+        table = random_bank_table(rng, k, log2_rows, pack)
+        if fill is not None:
+            table[:] = fill
+        table = c(table)
+        codes = c(rng.integers(-(2**31), 2**31, n + off, dtype=np.int64)
+                  .astype(np.int32))[off:]
+        assert codes.data_ptr() % 16 == 4 * off
         got = bwv(table, codes, salts, log2_rows, pack)
         want = _bank_probe_torch(table, u32(codes), salts, log2_rows, pack)
         torch.cuda.synchronize()
-        err_v = max(err_v, compare([got], [want], f"bloom_word_vmem k={k} "
-                                   f"2^{log2_rows} rows pack={pack} n={n}"))
-        assert 0 < int((got != 0).sum()) < n or n < 200, "degenerate table"
+        what = (f"bloom_word_vmem k={k} 2^{log2_rows} rows pack={pack} n={n} "
+                f"offset={off} fill={fill}")
+        assert got.data_ptr() % 16 == 4 * off, what
+        err_v = max(err_v, compare([got], [want], what))
+        n_set = int((got != 0).sum())
+        if fill is None:
+            assert 0 < n_set < n or n < 200, f"degenerate table: {what}"
+        else:
+            assert n_set == (n if fill else 0), what
     bloom_cases = [(15, 1000), (17, 3_000_001), (18, 333), (19, 65_537),
                    (20, (1 << 20) + 3)]
     err_h = 0
@@ -489,12 +583,15 @@ def timed_passes(torch, run, passes):
     return e0.elapsed_time(e1) / passes, res, wall
 
 
-def phase_rows_path(torch, base, card, bwv):
+def phase_rows_path(torch, base, card, bwv, ptxas, parent=None):
     """The per-row sampled filter at the headline's 128 MiB: route, timed
     and counted batch, no host sync in its dispatch, the kernel at this
-    shape against plain and bound, planted needles."""
+    shape against plain and bound, its parts and its profiler device time
+    (beside the ``parent`` csrc's kernel, if given), planted needles."""
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
-    from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        _bank_probe_torch, bloom_word_vmem_launch_shape,
+    )
     from php_aho_corasick_tpu_torch.ops.filter_torch import (
         sampled_gram_codes, u32,
     )
@@ -558,9 +655,43 @@ def phase_rows_path(torch, base, card, bwv):
     f_ms = cuda_ms(lambda: cm.scan_hits_sampled(
         h.chunks_d, h.lengths_d, max(cm._cap_hits, 256)), 5)
     log(f"bloom_word_vmem at {tuple(codes.shape)} codes: {k_ms:.4f} ms "
-        f"(plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: {b_bytes} "
-        f"bytes, {b_ops} ops), {int((got != 0).sum())} coarse hits; the "
-        f"whole per-row filter {f_ms:.3f} ms; on {card}")
+        f"({100 * b_ms / k_ms:.1f}% of bound; plain {p_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}: {b_bytes} bytes, {b_ops} ops), "
+        f"{int((got != 0).sum())} coarse hits; the whole per-row filter "
+        f"{f_ms:.3f} ms; on {card}")
+    # its parts: a table of zeros (the streaming and the unconditional
+    # first probes), of ones (every code takes all k probes), the plan's
+    # table; and a device copy of the same bytes (codes read, as many
+    # words written) as the streaming's yardstick
+    zeros, ones = torch.zeros_like(table), torch.full_like(table, -1)
+    z_ms = cuda_ms(lambda: bwv(zeros, codes, *kargs), 50)
+    o_ms = cuda_ms(lambda: bwv(ones, codes, *kargs), 50)
+    copy_to = torch.empty_like(codes)
+    c_ms = cuda_ms(lambda: copy_to.copy_(codes), 50)
+    log(f"bloom_word_vmem parts: {z_ms:.4f} ms with a zero table, "
+        f"{o_ms:.4f} ms with a table of ones (all {len(p.vmem_salts)} "
+        f"probes a code), {k_ms:.4f} ms with the plan's table; a copy of "
+        f"the codes {c_ms:.4f} ms; on {card}")
+    shape = bloom_word_vmem_launch_shape(table.numel(), p.vmem_pack,
+                                         codes.numel())
+    log(f"bloom_word_vmem launch: {shape}, {4 * table.numel()} bytes of "
+        f"tables; {ptxas}")
+    # one yardstick for this design and, with --parent, another checkout's:
+    # the profiler's device time, in turns on this card
+    runs = [("this tree", lambda: bwv(table, codes, *kargs))]
+    if parent is not None:
+        prun = parent_bloom_word_vmem(parent)
+        pgot = prun(table, codes, *kargs)
+        torch.cuda.synchronize()
+        compare([pgot], [want], "parent bloom_word_vmem, rows plan")
+        runs = [("parent", lambda: prun(table, codes, *kargs)), runs[0]]
+        runs = runs + runs[::-1]
+    prof = [(who, profiler_ms(torch, fn, 20, "bloom_word_vmem"))
+            for who, fn in runs]
+    log("bloom_word_vmem by the profiler's device time, ms a launch: "
+        + ", ".join(f"{who} {t:.4f}" if t is not None else
+                    f"{who} not measured" for who, t in prof)
+        + f"; on {card}")
     planted_check(m, needles, base, int(DENSITY * 1e9) + 1,
                   "rows planted corpus")
     return {
@@ -1006,7 +1137,15 @@ def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
     }
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--parent", metavar="CSRC",
+        help="the csrc directory of another checkout: its bloom_word_vmem "
+             "is built and timed beside this tree's at the rows cell")
+    parent = ap.parse_args(argv).parent
     import torch
 
     if not torch.cuda.is_available():
@@ -1151,7 +1290,9 @@ def main():
                                      sync_err)
 
     # 6. the rows path, 7. the anchored path
-    rows_kernel = phase_rows_path(torch, base, card, bwv)
+    rows_kernel = phase_rows_path(torch, base, card, bwv,
+                                  ptxas_lines(report, "bloom_word_vmem"),
+                                  parent)
     rows_kernel["max_abs_err"] = max(rows_kernel["max_abs_err"], vmem_err)
     hit_kernel = phase_anchored_path(torch, base, card, bh)
     hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], hit_err)

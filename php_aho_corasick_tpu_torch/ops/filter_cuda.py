@@ -433,6 +433,50 @@ def fused_sampled_extract(
 fused_sampled_extract.launches = 0
 
 
+def _out_like(codes: torch.Tensor) -> torch.Tensor:
+    """An empty int32 tensor of ``codes``' shape whose address lies at the
+    same offset within 16 bytes as ``codes``' (the kernel streams both
+    through 16-byte loads and stores, with the same head before the first
+    16-byte boundary)."""
+    n = codes.numel()
+    buf = torch.empty(n + 3, dtype=torch.int32, device=codes.device)
+    lead = (codes.data_ptr() - buf.data_ptr()) % 16 // 4
+    return buf[lead : lead + n].view(codes.shape)
+
+
+#: C signatures of ``csrc/bloom_word_vmem.cu``'s entry points
+BLOOM_WORD_VMEM_ARGTYPES = {
+    # table, table words, codes, out, n, salts, k, log2_rows, pack, stream
+    "bloom_word_vmem_launch": [_P, _LL, _P, _P, _LL, _P, _I, _I, _I, _P],
+    # table words, pack, n, grid, block, blocks per SM
+    "bloom_word_vmem_shape": [_LL, _I, _LL, _P, _P, _P],
+}
+
+
+def _bloom_word_vmem_fn(name="bloom_word_vmem_launch"):
+    from ._build import load_library
+
+    fn = getattr(load_library("bloom_word_vmem"), name)
+    if fn.argtypes is None:
+        fn.argtypes = BLOOM_WORD_VMEM_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bloom_word_vmem_launch_shape(table_words: int, pack: int, n: int) -> dict:
+    """Grid, block and resident blocks per SM of ``bloom_word_vmem``'s
+    launch for ``n`` codes on the current CUDA device (launches
+    nothing)."""
+    grid, block, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _bloom_word_vmem_fn("bloom_word_vmem_shape")(
+        table_words, pack, n, ctypes.byref(grid), ctypes.byref(block),
+        ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"bloom_word_vmem_shape: CUDA error {rc}")
+    return {"grid": grid.value, "block": block.value,
+            "blocks_per_sm": per_sm.value}
+
+
 def bloom_word_vmem(
     table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
     codes: torch.Tensor,  # [...] int32 gram codes
@@ -446,7 +490,8 @@ def bloom_word_vmem(
 
     A CUDA ``table`` launches ``csrc/bloom_word_vmem.cu`` (counted in
     ``bloom_word_vmem.launches``); a CPU one runs
-    :func:`_bank_probe_torch`."""
+    :func:`_bank_probe_torch`.  On the card the result lies at the same
+    offset within 16 bytes as ``codes`` (:func:`_out_like`)."""
     if not table.is_cuda:
         return _bank_probe_torch(table, u32(codes), salts, log2_rows, pack)
     dev = table.device
@@ -456,15 +501,10 @@ def bloom_word_vmem(
         raise ValueError("bloom_word_vmem: unsupported configuration")
     _check("table", table, (len(salts) * n_banks // pack, 128), dev)
     _check("codes", codes, codes.shape, dev)
-    out = torch.empty_like(codes)
+    out = _out_like(codes)
     if codes.numel() == 0:
         return out
-    from ._build import load_library
-
-    fn = load_library("bloom_word_vmem").bloom_word_vmem_launch
-    fn.argtypes = [_P, _LL, _P, _P, _LL, _P, _I, _I, _I, _P]
-    fn.restype = ctypes.c_int
-    rc = fn(
+    rc = _bloom_word_vmem_fn()(
         table.data_ptr(), table.numel(), codes.data_ptr(), out.data_ptr(),
         codes.numel(), _u32_array(salts, len(salts)), len(salts), log2_rows,
         pack, torch.cuda.current_stream(dev).cuda_stream,

@@ -273,29 +273,56 @@ def test_tile_path_card_equals_cpu(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "k,log2_rows,pack,n",
+    "k,log2_rows,pack,n,offset,fill",
     [
-        (7, 12, 4, 27_000_001 // 1000),  # the rows cell's plan, ragged n
-        (2, 15, 1, 5000),  # 256 KiB: over the shared budget, read from L2
-        (8, 13, 2, 131_073),
-        (3, 14, 4, 1),
-        (4, 12, 1, 128 * 1024),
+        (7, 12, 4, 27_000_001 // 1000, 0, None),  # the rows plan, ragged n
+        (2, 15, 1, 5000, 0, None),  # 256 KiB: over the shared budget, L2
+        (8, 13, 2, 131_073, 0, None),
+        (3, 14, 4, 1, 0, None),
+        (4, 12, 1, 128 * 1024, 0, None),
+        # n of 1, 3 and 4m + 1; views 1-3 elements past a 16-byte boundary
+        (7, 12, 4, 1, 1, None),
+        (7, 12, 4, 3, 3, None),
+        (7, 12, 4, 4 * 4099 + 1, 1, None),
+        (7, 12, 4, 4 * 4099 + 2, 2, None),
+        (7, 12, 4, 4 * 4099 + 3, 3, None),
+        (5, 14, 1, 4 * 999 + 1, 2, None),  # over the budget, misaligned
+        # k = 1 and 8
+        (1, 12, 4, 4 * 5000 + 1, 1, None),
+        (8, 12, 4, 4 * 5000 + 1, 2, None),
+        (1, 15, 2, 7777, 3, None),  # k = 1 over the budget
+        # zero table: every code stops at the first probes; all ones:
+        # every code takes all k probes
+        (7, 12, 4, 99_999, 1, 0),
+        (7, 12, 4, 99_999, 2, -1),
+        (8, 12, 1, 4 * 3000 + 3, 3, -1),
+        (8, 15, 4, 4 * 3000 + 1, 0, -1),  # all ones, over the budget
     ],
 )
-def test_bloom_word_vmem_matches_plain(cuda, k, log2_rows, pack, n):
-    rng = np.random.default_rng(k * 1000 + log2_rows)
+def test_bloom_word_vmem_matches_plain(cuda, k, log2_rows, pack, n, offset,
+                                       fill):
+    rng = np.random.default_rng(k * 1000 + log2_rows + 7 * offset)
     rows = k * ((1 << log2_rows) // 128) // pack
     table = rng.integers(-(2**31), 2**31, (rows, 128),
                          dtype=np.int64).astype(np.int32)
-    codes = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
-    t, c = torch.from_numpy(table).to(cuda), torch.from_numpy(codes).to(cuda)
+    if fill is not None:
+        table[:] = fill
+    codes = rng.integers(-(2**31), 2**31, n + offset,
+                         dtype=np.int64).astype(np.int32)
+    t = torch.from_numpy(table).to(cuda)
+    buf = torch.from_numpy(codes).to(cuda)
+    c = buf[offset:]  # a view past the buffer's 16-byte-aligned start
+    assert c.data_ptr() % 16 == 4 * offset
     before = bloom_word_vmem.launches
     got = bloom_word_vmem(t, c, _salts(k), log2_rows, pack)
     want = _bank_probe_torch(t, u32(c), _salts(k), log2_rows, pack)
     torch.cuda.synchronize()
     assert bloom_word_vmem.launches == before + 1
     assert got.dtype == want.dtype == torch.int32
+    assert got.data_ptr() % 16 == c.data_ptr() % 16
     assert torch.equal(got, want)
+    if fill == 0:
+        assert not bool(got.any())
 
 
 @pytest.mark.cuda

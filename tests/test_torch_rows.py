@@ -27,8 +27,10 @@ from php_aho_corasick_tpu.ops import filter_jax, filter_pallas  # noqa: E402
 import php_aho_corasick_tpu_torch as port  # noqa: E402
 from php_aho_corasick_tpu_torch.ops import filter_torch  # noqa: E402
 from php_aho_corasick_tpu_torch.ops.filter_cuda import (  # noqa: E402
+    _out_like,
     bloom_word_vmem,
 )
+from php_aho_corasick_tpu_torch.ops.filter_torch import KNUTH  # noqa: E402
 from test_torch_slice import _assert_same  # noqa: E402
 
 
@@ -79,6 +81,57 @@ def test_bloom_word_vmem_plain_matches_pallas(pack):
     assert got.dtype == torch.int32 and got.shape == codes.shape
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert bloom_word_vmem.launches == before  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_bloom_word_vmem_output_shares_the_codes_offset(offset):
+    """The wrapper's output (``_out_like``) lies at the codes' offset
+    within 16 bytes, so the kernel's 16-byte loads and stores split codes
+    and words at the same elements: views 0-3 elements past a 16-byte
+    boundary, ragged and 2-D shapes."""
+    buf = torch.zeros(4 * 64 + 16, dtype=torch.int32)
+    start = (-buf.data_ptr() % 16) // 4 + offset
+    for shape in [(1,), (3,), (4 * 7 + 1,), (5, 13)]:
+        n = int(np.prod(shape))
+        codes = buf[start : start + n].view(shape)
+        out = _out_like(codes)
+        assert out.data_ptr() % 16 == codes.data_ptr() % 16 == 4 * offset
+        assert out.shape == codes.shape and out.dtype == torch.int32
+        assert out.is_contiguous()
+
+
+@pytest.mark.parametrize("pack", [1, 2, 4])
+def test_bloom_word_vmem_staged_layout_equals_plain_probe(pack):
+    """A numpy model of the kernel's shared-memory table: sub-word ``j``
+    of table word ``s`` staged at entry ``(s & ~127) * pack + 128 j +
+    (s & 127)`` (salt ``p``'s bloom row ``r`` at ``(p << log2_rows) +
+    r``), probed at the funnel shift ``(p : h) >> (32 - log2_rows)`` of
+    ``h = (code ^ salt_p) * 2654435761``.  Its AND over the salts equals
+    the plain probe."""
+    rng = np.random.default_rng(10 + pack)
+    k, log2_rows = 3, 11
+    sw = 32 // pack
+    # each bit set after the AND at 0.7 / sw: about half the codes hit
+    table = _table(rng, k, log2_rows, pack, (0.7 / sw) ** (1.0 / k))
+    words = table.reshape(-1).view(np.uint32).astype(np.uint64)
+    s = np.arange(words.size, dtype=np.uint64)
+    entries = np.zeros(k << log2_rows, np.uint64)
+    for j in range(pack):
+        e = (s & ~np.uint64(127)) * pack + 128 * j + (s & 127)
+        entries[e] = (words >> (sw * j)) & ((1 << sw) - 1)
+    codes = _i32(rng, 5000)
+    cu = codes.view(np.uint32).astype(np.uint64)
+    acc = None
+    for p, salt in enumerate(_salts(k)):
+        h = ((cu ^ salt) * KNUTH) & 0xFFFFFFFF
+        got = entries[((np.uint64(p) << np.uint64(32)) | h)
+                      >> np.uint64(32 - log2_rows)]
+        acc = got if acc is None else acc & got
+    want = bloom_word_vmem(torch.from_numpy(table), torch.from_numpy(codes),
+                           _salts(k), log2_rows, pack)
+    assert 0 < int(np.count_nonzero(acc)) < codes.size
+    np.testing.assert_array_equal(acc.astype(np.uint32).view(np.int32),
+                                  want.numpy())
 
 
 @pytest.mark.parametrize("shorts", [False, True])
