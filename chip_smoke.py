@@ -45,7 +45,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launches counted, and one pass split into device filter, fetch and host
    verify; equal to the dense engine on all 32 MiB and to the host walk on
    8 MiB; the kernel against ``bloom_hit_take`` at this shape;
-8. one JSON line of kernel timings, the card's name and power limit, and
+8. the take filters: take-flat, 16,384 needles x 16 bytes over
+   ``abcdef`` at the default config (plan q=10, stride 7, no bank bloom,
+   a 2^27-word positional bloom) against the headline's 128 MiB,
+   ``match_arrays_many([handle] * 12)`` timed, traced and sync-checked,
+   never reaching the host verify (the needles are drawn apart from the
+   base documents, which hold only chance occurrences of them), planted
+   needles at 64 MiB;
+   take-grouped, the headline set with ``bloom_impl="take"`` on the
+   headline's handle, timed with its ``bloom_hit`` launches counted (the
+   prefix refinement), equal to the fused route, the kernel against
+   ``bloom_hit_take`` at the shapes this path gives it, planted needles;
+   force-take, ``b"abcdefabcdefabcd" * 70000`` (more than 128 survivors
+   in every extraction group): all 70,000 records, the matcher switched
+   to the flat take filter and still serving;
+9. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 1-8, 2^12-2^15-word
@@ -73,6 +87,8 @@ TILE_REPS, TILE_PASSES, DFA_PASSES = 16, 10, 2  # 32 MiB tile corpus
 TILE_CAPACITY = 1 << 19  # every final position of a pass in one scan
 ROWS_LEN = 13  # needle bytes of the rows path (plan stride 5)
 ANCHORED_LEN, ANCHORED_REPS, ANCHORED_PASSES = 7, 16, 3  # 32 MiB
+TAKE_NEEDLES = 16384  # the smallest measured set with no bank bloom is 8192
+FORCE_TAKE_NEEDLE, FORCE_TAKE_REPS = b"abcdefabcdefabcd", 70000
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # The four kernels do 32-bit integer work, one instruction per counted
@@ -556,13 +572,15 @@ def planted_check(m, needles, base, seed, what):
         f"8 MiB slice equals the host walk ({ref.shape[1]} matches)")
 
 
-def needle_set(length, seed=1337):
-    """2048 distinct needles of ``length`` bytes over ``abcdef`` drawn
-    from ``default_rng(seed)``."""
+def needle_set(length, seed=1337, n=N_NEEDLES):
+    """``n`` distinct needles of ``length`` bytes over ``abcdef`` drawn
+    from ``default_rng(seed)``: a stream apart from the ``random.Random``
+    one that drew the base documents, so these hold only chance
+    occurrences of them."""
     rng = np.random.default_rng(seed)
     pool = np.frombuffer(ALPHABET, np.uint8)
     out = set()
-    while len(out) < N_NEEDLES:
+    while len(out) < n:
         out.add(rng.choice(pool, length).tobytes())
     return sorted(out)
 
@@ -824,6 +842,219 @@ def phase_anchored_path(torch, base, card, bh):
         # and two shifts, no kernel of this package
         "library_ms": p_ms,
     }
+
+
+def counts_zeroed(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def spy_bloom_hit(fn):
+    """Run ``fn()`` with ``ops/filter_cuda.bloom_hit`` wrapped so that the
+    ``(words, slots)`` of every call are kept; returns them."""
+    from php_aho_corasick_tpu_torch.ops import filter_cuda
+
+    real, seen = filter_cuda.bloom_hit, []
+
+    def spy(words, slots):
+        seen.append((words, slots))
+        return real(words, slots)
+
+    # the wrapper counts its launches on the module's ``bloom_hit``
+    spy.launches = real.launches
+    filter_cuda.bloom_hit = spy
+    try:
+        fn()
+    finally:
+        filter_cuda.bloom_hit = real
+        real.launches = spy.launches
+    return seen
+
+
+def phase_take_path(torch, base, card, head, kernels):
+    """The sampled take filters (no hand kernel of their own; the grouped
+    one's prefix refinement probes through ``bloom_hit``): take-flat at
+    16,384 needles, take-grouped on the headline's handle, force-take.
+    ``head`` is the headline's ``(needles, handle, warm result)``.
+    Returns the ``bloom_hit`` launches of the grouped run and the
+    kernel's largest difference from ``bloom_hit_take`` at its shapes."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch.ops.filter_torch import bloom_hit_take
+
+    fse, bwv, bh, sst = kernels
+    docs = [row.tobytes() for row in base] * HEADLINE_REPS
+    total = sum(map(len, docs))
+
+    def no_host_verify(*args, **kw):
+        raise AssertionError("the records path reached host verify_arrays")
+
+    # take-flat: the default config builds no bank bloom for this set
+    needles = needle_set(NEEDLE_LEN, n=TAKE_NEEDLES)
+    t0 = time.perf_counter()
+    m = Matcher([{"id": i, "value": p} for i, p in enumerate(needles)],
+                ScanConfig(backend="device", chunk_len=4096), device=DEVICE)
+    m.finalize()
+    cm = m.cascade_model
+    build_s = time.perf_counter() - t0
+    p = cm.plan
+    assert (p.q, p.stride, p.log2_words, p.vmem_words,
+            m.automaton.n_states) == (10, 7, 27, None, 185537), p.reason
+    assert cm.bloom_impl() == "take" and cm.records_ok, cm.win_len
+    assert m._pick_engine(total) == "cascade"
+    t0 = time.perf_counter()
+    h = m.device_corpus(docs)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    B, L = h.chunks_d.shape
+    assert cm.take_branch(L) == "flat"
+    assert h.fused_phases(cm) is None
+    log(f"take-flat: {len(needles)} needles, plan {p.reason}, 2^"
+        f"{p.log2_words}-word positional bloom ({4 << p.log2_words} bytes "
+        f"on the card), no bank bloom, states {m.automaton.n_states}, "
+        f"win_len {cm.win_len}; build {build_s:.2f} s; {total / 2**20:.0f} "
+        f"MiB in rows [{B}, {L}], {B * -(-L // p.stride)} grid cells, "
+        f"upload {up_s:.2f} s")
+    cm.verify_arrays = no_host_verify
+    warm = m.match_arrays(h)
+    m.match_arrays_many([h] * BATCH)  # warm the batch structure
+    fallbacks = m.stats.records_fallbacks
+    counts_zeroed(kernels)
+    ms, res, wall = timed_passes(
+        torch, lambda: m.match_arrays_many([h] * BATCH), 1)
+    ms, wall = ms / BATCH, wall / BATCH
+    launched = [k.launches for k in kernels]
+    assert m.stats.records_fallbacks == fallbacks, "batch fell back"
+    assert not any(launched), f"take-flat launched hand kernels: {launched}"
+    assert not cm._force_take and cm.take_branch(L) == "flat"
+    for r in res:
+        for key in r:
+            assert np.array_equal(r[key], warm[key]), key
+    f_ms = cuda_ms(lambda: cm.scan_hits_sampled(
+        h.chunks_d, h.lengths_d, max(cm._cap_hits, 256)), 5)
+    c_ms = cuda_ms(lambda: cm.launch_device_records(
+        h.chunks_d, h.lengths_d, h.emit_from_d, max(cm._cap_hits, 256),
+        max(cm._cap_flagged, 256)), 5)
+    log(f"take-flat: match_arrays_many([handle] * {BATCH}) over "
+        f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
+        f"({wall:.3f} ms wall), {total / ms / 1e6:.2f} GB/s, "
+        f"{res[0]['doc'].shape[0]} matches/pass, no hand kernel launched, "
+        f"no records fallback, no host verify; device time of the flat "
+        f"filter {f_ms:.3f} ms, of filter + record verify {c_ms:.3f} ms "
+        f"(capacity {max(cm._cap_hits, 256)}); on {card}")
+    # one pass's host half: the fetch of the records and their expansion
+    rc, rp, _, nr_d, _ = cm.launch_device_records(
+        h.chunks_d, h.lengths_d, h.emit_from_d, max(cm._cap_hits, 256),
+        max(cm._cap_flagged, 256))
+    nr = int(nr_d)
+    t0 = time.perf_counter()
+    rc_np, rp_np = rc[:nr].cpu().numpy(), rp[:nr].cpu().numpy()
+    t1 = time.perf_counter()
+    cm.emit_records_arrays(h.packed, rc_np, rp_np, nr)
+    t2 = time.perf_counter()
+    log(f"take-flat pass parts: fetch of {nr} records {(t1 - t0) * 1e3:.3f} "
+        f"ms, host expansion {(t2 - t1) * 1e3:.3f} ms (host clock); on "
+        f"{card}")
+    trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card)
+    pending = assert_no_sync(
+        torch, lambda: m._records_batch_dispatch([h] * 2, cm))
+    m._records_batch_finish(*pending, True)
+    log("sync check (set_sync_debug_mode='error'): no host sync in the "
+        "take-flat dispatch")
+    planted_check(m, needles, base, int(DENSITY * 1e9) + 2,
+                  "take-flat planted corpus")
+    del m, cm, h
+
+    # take-grouped: the headline set asks for the take filter
+    needles_h, hh, warm_h = head
+    mg = Matcher([{"id": i, "value": v} for i, v in enumerate(needles_h)],
+                 ScanConfig(backend="device", chunk_len=4096,
+                            bloom_impl="take"), device=DEVICE)
+    cg = mg.cascade_model
+    L = hh.chunks_d.shape[1]
+    assert cg.bloom_impl() == "take" and cg.take_branch(L) == "grouped"
+    assert cg.plan.prefix_words is not None and cg.records_ok
+    cg.verify_arrays = no_host_verify
+    warm = mg.match_arrays(hh)
+    for key in warm:
+        assert np.array_equal(warm[key], warm_h[key]), f"grouped: {key}"
+    mg.match_arrays_many([hh] * BATCH)
+    fallbacks = mg.stats.records_fallbacks
+    counts_zeroed(kernels)
+    ms, res, wall = timed_passes(
+        torch, lambda: mg.match_arrays_many([hh] * BATCH), 1)
+    ms, wall = ms / BATCH, wall / BATCH
+    hit_launches = bh.launches
+    others = [k.launches for k in (fse, bwv, sst)]
+    assert hit_launches >= BATCH, f"bloom_hit launched {hit_launches} times"
+    assert not any(others), f"take-grouped launched other kernels: {others}"
+    assert mg.stats.records_fallbacks == fallbacks, "batch fell back"
+    assert cg.take_branch(L) == "grouped"
+    for r in res:
+        for key in r:
+            assert np.array_equal(r[key], warm_h[key]), key
+    cap = max(cg._cap_hits, 256)
+    f_ms = cuda_ms(lambda: cg.scan_hits_sampled(
+        hh.chunks_d, hh.lengths_d, cap), 5)
+    log(f"take-grouped: match_arrays_many([headline handle] * {BATCH}) "
+        f"with bloom_impl='take': {ms:.3f} ms/pass by CUDA events "
+        f"({wall:.3f} ms wall), {res[0]['doc'].shape[0]} matches/pass "
+        f"(equal to the fused route), bloom_hit launches {hit_launches}, "
+        f"group size {cg.take_group_block_r()}, slot capacity "
+        f"{cg._cap_coarse}; device time of the grouped filter {f_ms:.3f} "
+        f"ms; on {card}")
+    trace_breakdown(torch, lambda n: mg.match_arrays_many([hh] * n), card)
+    pending = assert_no_sync(
+        torch, lambda: mg._records_batch_dispatch([hh] * 2, cg))
+    mg._records_batch_finish(*pending, True)
+    log("sync check (set_sync_debug_mode='error'): no host sync in the "
+        "take-grouped dispatch")
+    # the kernel at the shapes this path gives it: the prefix bit test of
+    # the compacted hits, one call a prefix salt
+    seen = spy_bloom_hit(lambda: cg.scan_hits_sampled(
+        hh.chunks_d, hh.lengths_d, cap))
+    assert len(seen) == len(cg.plan.prefix_salts), len(seen)
+    err = 0
+    for words, slots in seen:
+        got = bh(words, slots)
+        want = bloom_hit_take(words, slots)
+        torch.cuda.synchronize()
+        err = max(err, compare([got], [want],
+                               f"bloom_hit, take-grouped, {slots.numel()} "
+                               f"slots"))
+    words, slots = seen[0]
+    k_ms = cuda_ms(lambda: bh(words, slots), 50)
+    p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 50)
+    log(f"bloom_hit at the take-grouped shape ({slots.numel()} slots, "
+        f"{words.numel()} words): bit-equal to bloom_hit_take; {k_ms:.4f} ms "
+        f"(plain {p_ms:.4f} ms); on {card}")
+    planted_check(mg, needles_h, base, int(DENSITY * 1e9),
+                  "take-grouped planted corpus")
+    del mg, cg
+
+    # force-take: > 128 survivors in every extraction group
+    text = FORCE_TAKE_NEEDLE * FORCE_TAKE_REPS
+    mf = Matcher([{"id": 0, "value": FORCE_TAKE_NEEDLE}],
+                 ScanConfig(backend="device", engine="cascade",
+                            cascade_mode="sampled", bloom_impl="pallas_vmem",
+                            chunk_len=4096), device=DEVICE)
+    cf = mf.cascade_model
+    assert cf.bloom_impl() == "pallas_vmem"
+    t0 = time.perf_counter()
+    recs = mf.match(text)
+    first_s = time.perf_counter() - t0
+    assert cf._force_take and cf.bloom_impl() == "take"
+    assert cf.take_branch(4096) == "flat"
+    assert len(recs) == FORCE_TAKE_REPS, len(recs)
+    assert recs[0]["pos"] == len(FORCE_TAKE_NEEDLE)
+    assert recs[-1]["pos"] == len(text)
+    ms, again, wall = timed_passes(torch, lambda: mf.match(text), 1)
+    assert again == recs, "force-take: a second call differs"
+    log(f"force-take: {len(text)} bytes, {len(recs)} records (first pos "
+        f"{recs[0]['pos']}, last {recs[-1]['pos']}); switched to the flat "
+        f"take filter in the first call ({first_s:.3f} s, host clock); a "
+        f"second call on the same matcher equal, {ms:.3f} ms by CUDA events "
+        f"({wall:.3f} ms wall); on {card}")
+    return hit_launches, err
 
 
 def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
@@ -1297,7 +1528,13 @@ def main(argv=None):
     hit_kernel = phase_anchored_path(torch, base, card, bh)
     hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], hit_err)
 
-    # 8. timings and the last line
+    # 8. the take filters; bloom_hit's launches count both of its paths
+    take_hits, take_err = phase_take_path(torch, base, card, (needles, h, warm),
+                                          (fse, bwv, bh, sst))
+    hit_kernel["launches"] += take_hits
+    hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], take_err)
+
+    # 9. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",

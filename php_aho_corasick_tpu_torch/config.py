@@ -113,8 +113,9 @@ class ScanConfig:
     #: v5e MXU — bf16 mantissa rounding of packed halves => missed
     #: matches — and HBM-bound on the materialized one-hot.)  In this
     #: package anchored plans probe through the bloom_hit kernel under
-    #: every setting, and sampled plans need "auto" or "pallas_vmem" (the
-    #: sampled take filters are not ported).
+    #: every setting; sampled plans take the bank-bloom filters for
+    #: "auto" and "pallas_vmem" where the planner built a bank bloom, and
+    #: the take filters otherwise (CascadeModel.bloom_impl).
     bloom_impl: str = "auto"
 
     #: byte budget for the lane-partitioned VMEM bloom table ([N, 128]

@@ -532,7 +532,7 @@ def plan_cascade(
     )
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP queue 1 item {item}"
     )
@@ -569,18 +569,50 @@ class CascadeModel:
         #: (learned from each launch's observed counts; may shrink)
         self._cap_hits = 4096
         self._cap_flagged = 256
-        #: stage-1 slot capacity: max coarse survivors per FUSED_BLOCK_R-
-        #: cell block column of the fused kernel (structurally <= 128),
-        #: seeded from the planner's stray estimate
+        #: stage-1 slot capacity: max coarse survivors per extraction
+        #: group (a FUSED_BLOCK_R-row block column of the fused kernel or
+        #: the grouped take filter, a 128-lane grid row of the per-row
+        #: filter; structurally <= 128), seeded from the planner's stray
+        #: estimate
         self._cap_coarse = 8
         self._force_take = False
+        lam = None
         if plan.vmem_words is not None:
             from ..ops.filter_torch import FUSED_BLOCK_R
 
             lam = plan.vmem_est_stray * FUSED_BLOCK_R
+        elif plan.mode == "sampled" and plan.log2_words:
+            # grouped take filter: stage A probes one salt, so survivors
+            # per cell ~ the single-salt stray
+            lam = self._take_stray1() * self.take_group_block_r()
+        if lam is not None:
             init = int(lam + 6.0 * lam**0.5 + 2)
             self._cap_coarse = max(8, min(128, -(-init // 8) * 8))
         self._cap_coarse_floor = self._cap_coarse
+
+    def _take_stray1(self) -> float:
+        """Per-cell single-salt stray estimate of the grouped take filter:
+        stride alignment bits x the positional bloom's per-bit fill."""
+        p = self.plan
+        return min(
+            1.0,
+            p.stride * self.auto.n_patterns / float(1 << p.log2_words),
+        )
+
+    def take_group_block_r(self) -> int:
+        """Group size of the grouped take filter's rank extraction, halved
+        from ``FUSED_BLOCK_R`` (down to 128) until the expected survivors
+        of a group at the single-salt stray are at most ~8."""
+        from ..ops.filter_torch import FUSED_BLOCK_R
+
+        p = self.plan
+        if p.mode != "sampled" or not p.log2_words:
+            return FUSED_BLOCK_R
+        br = FUSED_BLOCK_R
+        stray1 = self._take_stray1()
+        while br > 128 and stray1 * br > 8.0:
+            br //= 2
+        return br
 
     @property
     def learned_caps(self) -> Tuple[int, int]:
@@ -680,34 +712,52 @@ class CascadeModel:
                     self._dev["vmem_table"] = put(p.vmem_words)
                 if p.prefix_words is not None:
                     self._dev["prefix_words"] = put(p.prefix_words)
+                if p.sampled_words2 is not None:
+                    self._dev["sampled_words2"] = put(p.sampled_words2)
             else:
                 self._dev["bloom_words"] = put(p.bloom_words)
         return self._dev
 
     def bloom_impl(self) -> str:
-        """The filter implementation.  Anchored plans always probe
-        through the ``bloom_hit`` kernel (``"pallas"``), whatever the
-        setting: on the card it beats ``bloom_hit_take`` at every shape
-        measured, and on a CPU bloom its wrapper runs ``bloom_hit_take``.
-        Sampled plans take the bank-bloom filters (``"pallas_vmem"``, the
-        config's name for them) where the planner built their bloom; the
-        sampled take filters are not ported."""
+        """The filter implementation, by one rule on every device (the
+        CPU runs the card's route):
+
+        - anchored plans: ``"pallas"``, whatever the setting: they probe
+          through the ``bloom_hit`` kernel, which on the card beats
+          ``bloom_hit_take`` at every shape measured (on a CPU bloom its
+          wrapper runs ``bloom_hit_take``);
+        - sampled plans: ``"take"`` (the take filters, which probe the
+          positional bloom by gathers) once a launch saw more than 128
+          survivors in one extraction group (``_force_take``, for good),
+          for the settings ``"take"`` and ``"pallas"``, and wherever the
+          planner built no bank bloom; else ``"pallas_vmem"`` (the
+          bank-bloom filters), for ``"auto"`` and ``"pallas_vmem"``."""
         impl = self.config.bloom_impl
         if self.plan.mode != "sampled":
             return "pallas"
-        if self._force_take:
-            # a launch saw > 128 coarse survivors in one slot group — the
-            # fused extraction cannot represent that density
-            raise _not_ported(
-                "the take filter (after > 128 survivors in one column)", 6
-            )
-        if impl in ("take", "pallas") or self.plan.vmem_words is None:
-            raise _not_ported(
-                f"the take filter (bloom_impl={impl!r}, vmem bloom "
-                f"{'absent' if self.plan.vmem_words is None else 'built'})",
-                6,
-            )
+        if (
+            self._force_take
+            or impl in ("take", "pallas")
+            or self.plan.vmem_words is None
+        ):
+            return "take"
         return "pallas_vmem"
+
+    def take_branch(self, row_len: int, cap_coarse: Optional[int] = None):
+        """The take filter a launch over rows of ``row_len`` bytes runs:
+        ``"grouped"`` where the stride is a multiple of 4 dividing the
+        row, the slot capacity is at most 128 and ``_force_take`` is
+        unset, else ``"flat"``."""
+        s = self.plan.stride
+        cc = cap_coarse or self._cap_coarse
+        if (
+            not self._force_take
+            and s % 4 == 0
+            and row_len % s == 0
+            and cc <= 128
+        ):
+            return "grouped"
+        return "flat"
 
     def adaptive_chain(self, launch):
         """Drive one speculative filter -> verify chain with capacity
@@ -740,7 +790,8 @@ class CascadeModel:
 
     def _grow_cap_coarse(self, nc: int) -> None:
         """Grow the stage-1 slot cap after an overflow; past the 128-slot
-        ceiling of the extraction only the take filter could serve."""
+        ceiling of the extraction, switch for good to the flat take
+        filter (exact, no slot capacity) instead of spinning."""
         if _next_pow2(nc) > 128:
             self._force_take = True
         else:
@@ -758,15 +809,39 @@ class CascadeModel:
     ):
         """Speculative filter -> record-verify chain, entirely on device.
         Returns ``(rec_cell, rec_pack, n_d, nr_d, nc_d)`` as device values
-        (no host fetch), so callers can keep several chains in flight."""
-        from ..ops.filter_torch import records_chain_vmem
+        (no host fetch), so callers can keep several chains in flight.
+        The bank-bloom route runs :func:`records_chain_vmem`; the take
+        route runs :meth:`scan_hits_sampled` and the one-class-a-step
+        :func:`verify_windows_records`, as the reference does."""
+        from ..ops.filter_torch import (
+            records_chain_vmem, verify_windows_records,
+        )
 
-        self.bloom_impl()  # raises on the unported take paths
         if self._compressed:
             raise _not_ported("the compressed-table verifier", 7)
         dd = self.dense_model.device_arrays
         dev = self.device_arrays
         p = self.plan
+        if self.bloom_impl() != "pallas_vmem":
+            idx, _lw, _sw, n_d, nc_d = self.scan_hits_sampled(
+                chunks_d, lengths_d, cap_a, phase_g=phase_g
+            )
+            rec_cell, rec_pack, nr_d = verify_windows_records(
+                dd["table_flat"],
+                dev["byte_class"],
+                dev["used_bytes"],
+                chunks_d,
+                lengths_d,
+                emit_from_d,
+                idx,
+                dd["final_start"],
+                n_classes=self.auto.n_classes,
+                stride=p.stride,
+                win_len=self.win_len,
+                capacity=cap_r,
+                n_hits=cap_a,
+            )
+            return rec_cell, rec_pack, n_d, nr_d, nc_d
         use_k2 = self.records2_ok
         return records_chain_vmem(
             dev["vmem_table"],
@@ -831,7 +906,7 @@ class CascadeModel:
         if not self.records_ok:
             raise _not_ported(
                 f"the flagged-window device verify (win_len={self.win_len}, "
-                f"states={self.auto.n_states})", 6
+                f"states={self.auto.n_states})", "6b"
             )
         chunks_d, lengths_d, emit_from_d, phase_g = self._device_inputs(
             packed, dev_inputs
@@ -1005,16 +1080,58 @@ class CascadeModel:
         self, chunks, lengths, capacity: int,
         cap_coarse: Optional[int] = None, phase_g=None,
     ):
-        """One launch of the sampled bank-bloom filter (fused where the
-        alignment gate holds, else per row).  Returns ``(grid_idx,
-        long_word, short_word, n_hits, n_coarse)`` as device values;
-        ``n_coarse`` is the most survivors of one extraction group, which
-        must not exceed the slot capacity ``self._cap_coarse``."""
-        from ..ops.filter_torch import filter_hits_sampled_vmem
+        """One launch of the sampled filter :meth:`bloom_impl` names: the
+        bank-bloom filter (fused where the alignment gate holds, else per
+        row), or the take filter of :meth:`take_branch` (grouped or
+        flat).  Returns ``(grid_idx, long_word, short_word, n_hits,
+        n_coarse)`` as device values; ``n_coarse`` is the most survivors
+        of one extraction group, which must not exceed the slot capacity
+        ``self._cap_coarse`` (the flat take filter has no slots and
+        reports 0)."""
+        import torch
 
-        self.bloom_impl()  # raises on the unported take filters
+        from ..ops.filter_torch import (
+            filter_hits_sampled, filter_hits_sampled_grouped,
+            filter_hits_sampled_vmem,
+        )
+
         dev = self.device_arrays
         p = self.plan
+        cc = cap_coarse or self._cap_coarse
+        if self.bloom_impl() == "take":
+            if self.take_branch(chunks.shape[1], cc) == "grouped":
+                return filter_hits_sampled_grouped(
+                    dev["sampled_words"],
+                    chunks,
+                    lengths,
+                    dev["min_long_len"],
+                    q=p.q,
+                    stride=p.stride,
+                    log2_words=p.log2_words,
+                    salts=p.sampled_salts,
+                    shorts=p.shorts,
+                    capacity=capacity,
+                    cap_coarse=cc,
+                    prefix_words=dev.get("prefix_words"),
+                    prefix_salts=p.prefix_salts,
+                    prefix_log2=p.prefix_log2,
+                    prefix_len=p.prefix_len,
+                    block_r=self.take_group_block_r(),
+                    words2=dev.get("sampled_words2"),
+                )
+            idx, lw, sw, n = filter_hits_sampled(
+                dev["sampled_words"],
+                chunks,
+                lengths,
+                dev["min_long_len"],
+                q=p.q,
+                stride=p.stride,
+                log2_words=p.log2_words,
+                salts=p.sampled_salts,
+                shorts=p.shorts,
+                capacity=capacity,
+            )
+            return idx, lw, sw, n, torch.zeros_like(n)
         return filter_hits_sampled_vmem(
             dev["vmem_table"],
             dev["sampled_words"],
@@ -1030,7 +1147,7 @@ class CascadeModel:
             fine_salts=p.sampled_salts,
             shorts=p.shorts,
             capacity=capacity,
-            cap_coarse=cap_coarse or self._cap_coarse,
+            cap_coarse=cc,
             prefix_words=dev.get("prefix_words"),
             prefix_salts=p.prefix_salts,
             prefix_log2=p.prefix_log2,

@@ -1,19 +1,23 @@
 """Gram-filter cascade in PyTorch: the sampled records chain (filter ->
-slot compaction -> 2-step window verify) and the anchored candidate
-filter.
+slot compaction -> window verify) and the anchored candidate filter.
 
-Counterpart of the JAX package's ``ops/filter_jax.py``, for its bank-bloom
-filters.  **Sampled**: any occurrence of a pattern of length >=
-``min_long`` covers exactly one point of a ``stride`` lattice, so a
-positional-alignment bloom (bit ``j`` set <=> some long pattern has this
-q-gram at offset ``j``) is probed only at grid points.  Where the stride
-is a multiple of 4 dividing the row length, survivors are rank-extracted
-by the fused kernel (``ops/filter_cuda.fused_sampled_extract``); else the
+Counterpart of the JAX package's ``ops/filter_jax.py``.  **Sampled**: any
+occurrence of a pattern of length >= ``min_long`` covers exactly one
+point of a ``stride`` lattice, so a positional-alignment bloom (bit ``j``
+set <=> some long pattern has this q-gram at offset ``j``) is probed only
+at grid points.  Where the planner built a bank bloom, and the stride is
+a multiple of 4 dividing the row length, survivors are rank-extracted by
+the fused kernel (``ops/filter_cuda.fused_sampled_extract``); else the
 per-row filter probes every cell's code through
 ``ops/filter_cuda.bloom_word_vmem`` and rank-extracts per 128-lane row.
-Either way the slots are refined, compacted and verified by an exact DFA
-walk over their candidate windows, which emits compacted ``(cell,
-state*32 + j)`` match records for the host to expand.  **Anchored**
+Without a bank bloom the take filters probe the positional bloom itself
+by gathers: :func:`filter_hits_sampled_grouped` (one salt over the grid,
+the rest per extracted slot, then a prefix-bloom refinement through
+``ops/filter_cuda.bloom_hit``) where the stride gate holds, else the flat
+:func:`filter_hits_sampled`.  Either way the hits are compacted and
+verified by an exact DFA walk over their candidate windows, which emits
+compacted ``(cell, state*32 + j)`` match records for the host to
+expand.  **Anchored**
 (:func:`filter_candidates`): every position is tested as a match start
 against 1-3 staged bit blooms of class q-gram codes; the survivors are
 verified on the host.
@@ -35,8 +39,8 @@ from .scan_torch import INT32_MAX, _classes, blocked_nonzero
 KNUTH = 2654435761  # Knuth multiplicative hash constant
 #: polynomial rolling-hash base of the sampled gram codes (FNV-1 prime)
 GRAM_BASE = 0x01000193
-#: second code family of the signature-scale positional bloom (the
-#: planner builds it; its grouped take path is not ported yet)
+#: second code family of the signature-scale positional bloom, and its
+#: probe salt: the grouped take filter re-probes its extracted slots by it
 GRAM_BASE2 = 0x31000197
 SALT2 = 0x6A09E667
 #: grid-block height of the fused filter, and so the survivor-group size
@@ -136,8 +140,8 @@ def sampled_gram_codes(
     (wrapping in 32 bits) at the grid positions ``p = m * stride`` only:
     ``[B, M]`` int32, ``M = ceil(L / stride)``.  A gram overrunning its
     row reads zeros.  The reference's cell-aligned planes formulation
-    gives the same codes; the per-row filter, the only caller, runs
-    exactly where its gate fails.
+    gives the same codes; the grouped take filter computes them so
+    (:func:`_word_planes`), from the word pack it needs anyway.
 
     One strided ``[B, M]`` slice per gram byte, summed in int64 (each
     product is below 2**40), so no ``[B, M, stride]`` intermediate."""
@@ -159,6 +163,216 @@ def pack_corpus_words(chunks: torch.Tensor) -> torch.Tensor:
     reinterpretation of the bytes (CPUs and CUDA devices are
     little-endian), so no corpus-sized intermediate."""
     return chunks.contiguous().view(torch.int32)
+
+
+def _word_planes(wc: torch.Tensor, q: int, spc: int):
+    """Word ``j4`` of every grid cell's gram, ``j4 < ceil(q / 4)``, as
+    ``[B, M]`` int32 planes of the packed corpus ``wc [B, M * spc]``
+    (zeros past the row)."""
+    B = wc.shape[0]
+    planes = []
+    for j4 in range((q - 1) // 4 + 1):
+        shift, idx = divmod(j4, spc)
+        pl = wc[:, idx::spc]
+        if shift:
+            pl = torch.cat([pl[:, shift:], pl.new_zeros((B, shift))], dim=1)
+        planes.append(pl)
+    return planes
+
+
+def _planes_code(planes, q: int, base: int) -> torch.Tensor:
+    """Polynomial q-gram codes from the word planes, as unsigned 32-bit
+    values in int64 (each term is below 2**40, so the sum cannot
+    overflow before the mask)."""
+    code = torch.zeros(planes[0].shape, dtype=torch.int64,
+                       device=planes[0].device)
+    for j in range(q):
+        j4, k = divmod(j, 4)
+        byte = ((planes[j4] >> (8 * k)) & 0xFF).to(torch.int64)
+        code += byte * pow(base, q - 1 - j, 1 << 32)
+    return code & U32_MASK
+
+
+def _salted_probe(words: torch.Tensor, code_u: torch.Tensor, salt: int,
+                  log2_words: int) -> torch.Tensor:
+    """The positional-bloom word of each code (unsigned in int64) under
+    ``salt``: one gather."""
+    return words[mul32(code_u ^ salt, KNUTH) >> (32 - log2_words)]
+
+
+def filter_hits_sampled(
+    words: torch.Tensor,  # [2**log2_words] int32 positional bloom
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    min_long_len: torch.Tensor,  # scalar int32 (0 disables the long path)
+    *,
+    q: int,
+    stride: int,
+    log2_words: int,
+    salts: Tuple[int, ...],
+    shorts: Tuple[bytes, ...],
+    capacity: int,
+):
+    """Flat take filter: every grid cell's code probes the positional
+    bloom once per salt (one gather each), the words AND together (a
+    true gram has bit ``j`` set under every salt; stray bits must
+    coincide), gated on ``min_long_len``; short-pattern starts are exact.
+    The grid hits are compacted in ascending cell order.
+
+    Returns ``(grid_idx [capacity] flattened b * M + m ascending,
+    INT32_MAX-padded, long_word, short_word, n_hits)`` as device values;
+    retry with a bigger ``capacity`` when ``n_hits`` exceeds it.  It has
+    no slot capacity, so it serves any density."""
+    B, L = chunks.shape
+    M = -(-L // stride)
+    code_u = u32(sampled_gram_codes(chunks, q, stride))
+    w = None
+    for salt in salts:
+        probe = _salted_probe(words, code_u, salt, log2_words)
+        w = probe if w is None else (w & probe)
+    w = torch.where(min_long_len > 0, w, 0)
+    if shorts:
+        sw = _short_start_words(chunks, lengths, shorts, stride, M)
+    else:
+        sw = torch.zeros_like(w)
+    w, sw = w.reshape(-1), sw.reshape(-1)
+    idx, n_hits = blocked_nonzero((w | sw) != 0, capacity)
+    safe = torch.clamp(idx, max=B * M - 1).long()
+    valid = idx < INT32_MAX
+    return (idx, torch.where(valid, w[safe], 0),
+            torch.where(valid, sw[safe], 0), n_hits)
+
+
+def filter_hits_sampled_grouped(
+    words: torch.Tensor,  # [2**log2_words] int32 positional bloom
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    min_long_len: torch.Tensor,  # scalar int32 (0 disables the long path)
+    *,
+    q: int,
+    stride: int,
+    log2_words: int,
+    salts: Tuple[int, ...],
+    shorts: Tuple[bytes, ...],
+    capacity: int,
+    cap_coarse: int,
+    prefix_words=None,  # [2**prefix_log2 / 32] int32 bit bloom, or None
+    prefix_salts: Tuple[int, ...] = (),
+    prefix_log2: int = 0,
+    prefix_len: int = 0,
+    block_r: int = FUSED_BLOCK_R,
+    words2=None,  # [2**log2_words] int32 second-family bloom, or None
+):
+    """Grouped take filter, for ``stride % 4 == 0`` and ``stride | L``.
+
+    Stage A probes only the first salt over the grid (codes from the
+    packed corpus's word planes).  Survivors are rank-extracted per
+    (``block_r``-row group, lane) column into ``mpr`` slots
+    (``ops/filter_cuda.group_rank_extract``).  Stage B1 re-probes each
+    slot by the remaining salts, or by the second code family
+    (``GRAM_BASE2`` under ``SALT2``) when ``words2`` is given; the live
+    slots are compacted.  Stage B2 refines the compacted hits: a hit
+    whose long word names a single alignment keeps it only if its window
+    prefix hash passes the prefix bit bloom, probed through
+    ``ops/filter_cuda.bloom_hit`` (its kernel on the card).  Refined-dead
+    hits keep their slot with ``INT32_MAX`` and zero words.
+
+    Returns ``(grid_idx [capacity] in slot order, long_word, short_word,
+    n_final, n_coarse)`` as device values: ``n_final`` counts the hits
+    before the refinement (the capacity to cover), ``n_coarse`` is the
+    most survivors of one column (retry with a bigger ``cap_coarse``
+    when it exceeds it)."""
+    from .filter_cuda import (
+        _prefix_hash_select, _window_offsets, bloom_hit, group_rank_extract,
+        prefix_refine_words,
+    )
+
+    B, L = chunks.shape
+    if not (stride % 4 == 0 and L % stride == 0):
+        raise ValueError("grouped take gate: stride % 4 == 0 and stride | L")
+    dev = chunks.device
+    M = L // stride
+    spc = stride // 4
+    wc = pack_corpus_words(chunks)
+    planes = _word_planes(wc, q, spc)
+    code_u = _planes_code(planes, q, GRAM_BASE)
+    n_grid = B * M
+    w = _salted_probe(words, code_u, salts[0], log2_words).reshape(-1)
+    w = torch.where(min_long_len > 0, w, 0)
+    if shorts:
+        sw = _short_start_words(chunks, lengths, shorts, stride, M).reshape(-1)
+    else:
+        sw = torch.zeros_like(w)
+
+    R = -(-n_grid // 128)
+    n_blocks = max(1, -(-R // block_r))
+    tot = n_blocks * block_r * 128
+
+    def pad_flat(x):
+        return torch.cat([x.reshape(-1), x.new_zeros(tot - n_grid)])
+
+    mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
+    # with a second-family bloom the slot carries the GRAM_BASE2 code
+    # (its probe replaces the same-code second salt, which a true code
+    # collision would always pass)
+    hv = (_planes_code(planes, q, GRAM_BASE2) if words2 is not None
+          else code_u)
+    r_s, w_s, swo_s, c_s, cnt = group_rank_extract(
+        pad_flat(w), pad_flat(sw), pad_flat(to_i32(hv)), block_r, mpr,
+        n_blocks, n_grid,
+    )
+    nrows = n_blocks * mpr
+    blk = (torch.arange(nrows, dtype=torch.int32, device=dev) // mpr)[:, None]
+    lane = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
+    cell_s = (blk * block_r + r_s) * 128 + lane
+
+    # stage B1: per-slot re-probes
+    c_u = u32(c_s)
+    if words2 is not None:
+        w_s = w_s & _salted_probe(words2, c_u, SALT2, log2_words)
+    else:
+        for salt in salts[1:]:
+            w_s = w_s & _salted_probe(words, c_u, salt, log2_words)
+
+    alive = (r_s >= 0) & ((w_s | swo_s) != 0) & (cell_s < n_grid)
+    slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
+    safe = torch.clamp(slot, max=nrows * 128 - 1).long()
+    valid = slot < INT32_MAX
+    idx = torch.where(valid, cell_s.reshape(-1)[safe], INT32_MAX)
+    lw = torch.where(valid, w_s.reshape(-1)[safe], 0)
+    swo = torch.where(valid, swo_s.reshape(-1)[safe], 0)
+
+    # stage B2: the prefix refinement on the compacted hits only
+    prefix_on = (
+        prefix_words is not None
+        and stride <= 32
+        and 4 <= prefix_len <= 20
+        and bool(prefix_salts)
+    )
+    if prefix_on:
+        wc_flat = wc.reshape(-1)
+        first_word = torch.where(valid, idx, 0).long() * spc
+        plane_memo = {}
+
+        def get_plane(c):
+            if c not in plane_memo:
+                widx = torch.clamp(first_word + c, 0, wc_flat.shape[0] - 1)
+                plane_memo[c] = wc_flat[widx]
+            return plane_memo[c]
+
+        h_s = _prefix_hash_select(get_plane, lw, stride, prefix_len,
+                                  _window_offsets(spc))
+        ok = None
+        for salt in prefix_salts:
+            bit = bloom_hit(prefix_words, bloom_slots(h_s, prefix_log2, salt))
+            ok = bit if ok is None else (ok & bit)
+        # a long word survives unless its single alignment failed the
+        # probe (alignment bits taken unsigned: bit 31 at stride 32 too)
+        keep = (prefix_refine_words(lw, ok, stride) != 0) | (swo != 0)
+        idx = torch.where(keep, idx, INT32_MAX)
+        lw = torch.where(keep, lw, 0)
+        swo = torch.where(keep, swo, 0)
+    return idx, lw, swo, n_final, cnt.max()
 
 
 def fused_phase_grid(
@@ -292,8 +506,7 @@ def filter_hits_sampled_vmem(
         # stage 2: fine re-probe of the positional bloom (h_s = code)
         wf = None
         for salt in fine_salts:
-            widx = mul32(u32(h_s) ^ salt, KNUTH) >> (32 - log2_words)
-            probe = words[widx]
+            probe = _salted_probe(words, u32(h_s), salt, log2_words)
             wf = probe if wf is None else (wf & probe)
         w_s = w_s & wf
         long_ok = w_s != 0
@@ -397,8 +610,7 @@ def _filter_hits_sampled_vmem_rows(
     # stage 2: every slot re-probes the fine positional bloom
     wf = None
     for salt in fine_salts:
-        widx = mul32(u32(c_s) ^ salt, KNUTH) >> (32 - log2_words)
-        probe = words[widx]
+        probe = _salted_probe(words, u32(c_s), salt, log2_words)
         wf = probe if wf is None else (wf & probe)
     w_s = w_s & wf
 

@@ -368,3 +368,54 @@ def test_host_verify_and_rows_paths_card_equal_cpu(cuda, length, alphabet):
         for key in a:
             np.testing.assert_array_equal(a[key], b[key])
     assert res[0][0]["doc"].shape[0] >= 150
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,n,branch", [
+    ("take", 300, "grouped"),  # stride 8: the prefix probes on bloom_hit
+    ("take", 40, "flat"),  # stride 10
+    ("auto", 8192, "flat"),  # no bank bloom at the default config
+])
+def test_take_paths_card_equal_cpu(cuda, impl, n, branch):
+    rng = random.Random(n)
+    needles = sorted({bytes(rng.choice(b"abcdef") for _ in range(16))
+                      for _ in range(n)})
+    docs = [bytearray(rng.choice(b"abcdef") for _ in range(8192))
+            for _ in range(160)]
+    for _ in range(400):
+        d = docs[rng.randrange(len(docs))]
+        o = rng.randrange(8192 - 16)
+        d[o : o + 16] = needles[rng.randrange(len(needles))]
+    docs = [bytes(d) for d in docs]
+    specs = [{"id": i, "value": p} for i, p in enumerate(needles)]
+    cfg = port.ScanConfig(chunk_len=4096, bloom_impl=impl)
+    res = []
+    before = bloom_hit.launches
+    for device in (cuda, "cpu"):
+        m = port.Matcher(specs, cfg, device=device)
+        cm = m.cascade_model
+        h = m.device_corpus(docs)
+        assert cm.bloom_impl() == "take"
+        assert cm.take_branch(h.chunks_d.shape[1]) == branch
+        res.append(m.match_arrays_many([h, h]))
+        if device == cuda:
+            launched = bloom_hit.launches - before
+            assert launched >= 2 if branch == "grouped" else launched == 0
+    for a, b in zip(*res):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    assert res[0][0]["doc"].shape[0] >= 350
+
+
+@pytest.mark.cuda
+def test_force_take_on_card(cuda):
+    p = b"abcdefabcdefabcd"
+    text = p * 70000
+    m = port.Matcher([{"id": 0, "value": p}], port.ScanConfig(
+        engine="cascade", cascade_mode="sampled", bloom_impl="pallas_vmem",
+        chunk_len=4096), device=cuda)
+    recs = m.match(text)
+    assert m.cascade_model._force_take
+    assert len(recs) == 70000
+    assert recs[0]["pos"] == 16 and recs[-1]["pos"] == len(text)
+    assert m.match(text) == recs

@@ -52,6 +52,24 @@ for n, length, mode, stride in ((2048, 13, "sampled", 5),
     res = m.match_arrays([doc])
     assert (3000 + length, 9) in zip(res["pos"].tolist(),
                                      res["pattern"].tolist()), res
+# the take filters: asked for, and the flat one after > 128 survivors in
+# one extraction group
+pats = [b"abcdefabcdef", b"cdefabcdefab", b"xy"]
+m = port.Matcher([{"value": p} for p in pats],
+                 port.ScanConfig(engine="cascade", chunk_len=256,
+                                 bloom_impl="take"), device="cpu")
+assert m.cascade_model.bloom_impl() == "take"
+doc = b"ab" * 300 + pats[0] + b"c" * 50 + b"xy" + b"d" * 400
+res = m.match_arrays_many([m.device_corpus([doc, doc[::-1]])])[0]
+assert sorted(zip(res["doc"].tolist(), res["pos"].tolist(),
+                  res["pattern"].tolist())) == want
+p = b"abcdefabcdefabcd"
+m = port.Matcher([{"value": p}],
+                 port.ScanConfig(engine="cascade", cascade_mode="sampled",
+                                 bloom_impl="pallas_vmem", chunk_len=4096),
+                 device="cpu")
+recs = m.match(p * 70000)
+assert m.cascade_model._force_take and len(recs) == 70000
 loaded = [n for n in sys.modules
           if n == "jax" or n.startswith("jax.")
           or n == "php_aho_corasick_tpu" or n.startswith("php_aho_corasick_tpu.")]

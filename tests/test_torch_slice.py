@@ -206,16 +206,18 @@ def test_records_chain_on_carried_tables(stage2):
 
 
 def test_unported_modes_raise():
+    """The k-gram engine, the sharded corpus and the compressed table
+    raise naming their ROADMAP items; the take filter
+    (``bloom_impl="take"``), once pinned here as raising, now equals the
+    JAX package's records."""
     pats, docs = _mixed_case(0)
     m = port.Matcher([{"value": p} for p in pats],
                      port.ScanConfig(engine="kgram"), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         m.match_arrays(docs)
-    m = port.Matcher([{"value": p} for p in pats],
-                     port.ScanConfig(**dict(CFG, bloom_impl="take")),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        m.match_arrays(docs)
+    mj, m = _matchers(pats, bloom_impl="take")
+    assert m.cascade_model.bloom_impl() == "take"
+    _assert_same(mj.match_arrays(docs), m.match_arrays(docs))
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         m.device_corpus(docs, shard=True)
     m = port.Matcher([{"value": p} for p in pats],
@@ -228,8 +230,9 @@ def test_unported_modes_raise():
 def test_alignment_gate_failure_raises():
     """A plan whose stride is no multiple of 4 cannot take the fused
     filter: the port serves it through the per-row filter, equal to the
-    JAX package, and raises only where the same plan asks for the take
-    filter, which is not ported."""
+    JAX package.  Where the same plan asks for the take filter, which
+    once raised here, it takes the flat take filter, equal to the JAX
+    package too."""
     rng = random.Random(3)
     pats = [bytes(rng.choice(b"abcdef") for _ in range(10))
             for _ in range(40)]
@@ -238,8 +241,8 @@ def test_alignment_gate_failure_raises():
     doc = b"abcdef" * 100 + pats[3] + b"fedcba" * 50 + pats[7]
     _assert_same(mj.match_arrays([doc]), m.match_arrays([doc]))
     assert m.match_arrays([doc])["doc"].shape[0] >= 2
-    m = port.Matcher([{"value": p} for p in pats],
-                     port.ScanConfig(**dict(CFG, bloom_impl="take")),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        m.match_arrays([doc])
+    mj, m = _matchers(pats, bloom_impl="take")
+    assert m.cascade_model.take_branch(1024) == "flat"
+    got = m.match_arrays([doc])
+    _assert_same(mj.match_arrays([doc]), got)
+    assert got["doc"].shape[0] >= 2
