@@ -59,7 +59,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    force-take, ``b"abcdefabcdefabcd" * 70000`` (more than 128 survivors
    in every extraction group): all 70,000 records, the matcher switched
    to the flat take filter and still serving;
-9. one JSON line of kernel timings, the card's name and power limit, and
+9. the compressed table, the flagged-window verify and the k-gram engine:
+   (a) signature-byte, ``benchmarks/bench_signatures.py --alphabet
+   byte``'s draw cut to 100,000 of its 1M needles (the numpy builder's
+   time: 12-15 s of host time, minutes at 1M), 16 random bytes each, at
+   the default config: finalize to the compressed table (the dense one
+   would pass ``dense_table_max_bytes``), its 64 MiB corpus of random
+   bytes in 1 MiB documents with 200 needles planted,
+   ``match_arrays_many([handle] * 12)`` timed, counted, traced and
+   sync-checked, every planted needle found, 8 MiB equal to a host walk
+   through ``CompressedAutomaton.lookup``;
+   (b) headline-compressed, the headline set with
+   ``table_format="compressed"`` on phase 4's planted 64 MiB handle (the
+   fused records chain with the compressed walk), timed, equal to the dense
+   matcher; (c) ``engine="dfa"`` on (a)'s matcher (the compressed walk)
+   over 8 MiB, equal to (a)'s records; (d) ``CascadeModel.launch_device``
+   (the flagged-window verify) on (b)'s dense and compressed models over
+   the 64 MiB handle, its ``emit_windows_arrays`` equal to the records
+   path; (e) ``engine="kgram"`` (k = 4) on phase 5's 32 MiB tile handle,
+   timed, equal to the tile and dense engines;
+10. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 1-8, 2^12-2^15-word
@@ -89,6 +108,9 @@ ROWS_LEN = 13  # needle bytes of the rows path (plan stride 5)
 ANCHORED_LEN, ANCHORED_REPS, ANCHORED_PASSES = 7, 16, 3  # 32 MiB
 TAKE_NEEDLES = 16384  # the smallest measured set with no bank bloom is 8192
 FORCE_TAKE_NEEDLE, FORCE_TAKE_REPS = b"abcdefabcdefabcd", 70000
+# bench_signatures.py --alphabet byte at 1/10 of its needles
+SIG_NEEDLES, SIG_LEN, SIG_MIB, SIG_DOC = 100_000, 16, 64, 1 << 20
+KGRAM_PASSES = 3
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # The four kernels do 32-bit integer work, one instruction per counted
@@ -570,6 +592,7 @@ def planted_check(m, needles, base, seed, what):
     log(f"{what}: {dens.size / 2**20:.0f} MiB, {n_plant} planted, "
         f"{len(intact)} intact all found, {rd['doc'].shape[0]} matches; "
         f"8 MiB slice equals the host walk ({ref.shape[1]} matches)")
+    return hd, rd
 
 
 def needle_set(length, seed=1337, n=N_NEEDLES):
@@ -1353,7 +1376,7 @@ def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
         list(a) == list(b) for a, b in zip(got1, TEST1_EXPECT)), got1
     log("compat: ahocorasick_match on test1's input equals its expectation "
         "(tile engine, on the card)")
-    return {
+    return (specs, h, res, rd), {
         "name": "scan_states_tile",
         "route": "cuda",
         "source": "php_aho_corasick_tpu_torch/csrc/scan_states_tile.cu",
@@ -1366,6 +1389,374 @@ def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
         "bound_by": b_by,
         "library_ms": None,
     }
+
+
+def signature_workload():
+    """``benchmarks/bench_signatures.py --alphabet byte``'s draw, cut to
+    ``SIG_NEEDLES`` of its 1M needles (the cut is the numpy builder's
+    time: 12-15 s of host time against minutes at 1M): 16-byte needles of
+    random bytes from ``default_rng(7)`` (sorted: a set's order varies
+    from run to run), then ``SIG_MIB`` MiB of random bytes from the same
+    generator in 1 MiB documents, a needle planted every 1/200 of the
+    corpus unless it would straddle a document.  Returns the needles, the
+    documents as one ``[n_docs, 1 MiB]`` array and the planted ``(doc,
+    end, pattern)`` rows."""
+    rng = np.random.default_rng(7)
+    raw = rng.integers(0, 256, (SIG_NEEDLES, SIG_LEN), dtype=np.uint8)
+    needles = sorted({raw[i].tobytes() for i in range(SIG_NEEDLES)})
+    n = SIG_MIB << 20
+    corpus = rng.integers(0, 256, n, dtype=np.uint8)
+    planted = []
+    for j in range(0, n - SIG_LEN, n // 200):
+        if j % SIG_DOC > SIG_DOC - SIG_LEN:
+            continue
+        pid = j % len(needles)
+        corpus[j : j + SIG_LEN] = np.frombuffer(needles[pid], np.uint8)
+        planted.append((j // SIG_DOC, j % SIG_DOC + SIG_LEN, pid))
+    return needles, corpus.reshape(-1, SIG_DOC), planted
+
+
+def host_walk_segments(auto, docs, seg=4096):
+    """:func:`host_walk` over long documents cut into ``seg``-byte pieces,
+    each walked from the root over the ``max_len - 1`` bytes before it
+    (the state at a position depends on no earlier byte), all pieces in
+    one vectorized walk: (doc, end, pattern) rows in reference order."""
+    from php_aho_corasick_tpu_torch.ops.matches import csr_expand
+
+    n_docs, n = docs.shape
+    halo = auto.max_len - 1
+    n_seg = -(-n // seg)
+    padded = np.zeros((n_docs, halo + n_seg * seg), np.uint8)
+    padded[:, halo : halo + n] = docs
+    win = np.lib.stride_tricks.sliding_window_view(
+        padded, halo + seg, axis=1)[:, ::seg].reshape(-1, halo + seg)
+    cls = auto.byte_class[win]
+    seg_of = np.arange(win.shape[0]) % n_seg
+    doc_of = np.arange(win.shape[0]) // n_seg
+    start = seg_of * seg  # document offset of each piece's first owned byte
+    states = np.zeros(win.shape[0], np.int64)
+    rows = []
+    for t in range(halo + seg):
+        pos = start + t - halo
+        valid = (pos >= 0) & (pos < n)
+        states = np.where(valid, auto.lookup(states, cls[:, t]), 0)
+        if t < halo:
+            continue
+        fin = np.nonzero(auto.is_final(states) & valid)[0]
+        if fin.size:
+            rec_of, pids = csr_expand(auto, states[fin])
+            src = fin[rec_of]
+            rows.append(np.stack([doc_of[src], pos[src] + 1, pids]))
+    arr = np.concatenate(rows, axis=1) if rows else np.zeros((3, 0), np.int64)
+    order = np.lexsort((arr[1], arr[0]))  # stable: CSR order within an end
+    return arr[:, order]
+
+
+def launched_of(kernels):
+    return [k.launches for k in kernels]
+
+
+def phase_signature_path(torch, card, kernels):
+    """Phase 9a and 9c: the 100,000-needle byte signature set, whose dense
+    table would exceed ``dense_table_max_bytes``, at the default config:
+    finalize to the compressed table, the sampled cascade over 64 MiB
+    (``match_arrays_many`` timed, counted, traced, sync-checked), every
+    planted needle found, 8 MiB equal to a host walk through
+    ``CompressedAutomaton.lookup``, ``bloom_hit`` against its plain version
+    at the shapes the path gives it; then ``engine="dfa"`` (the compressed
+    walk) over those 8 MiB, equal.  Returns the hand kernels' launches of
+    the timed batch and ``bloom_hit``'s largest difference from its plain
+    version."""
+    import dataclasses
+
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+
+    needles, docs2d, planted = signature_workload()
+    docs = [row.tobytes() for row in docs2d]
+    total = docs2d.size
+    cfg = ScanConfig(backend="device", chunk_len=4096)
+    t0 = time.perf_counter()
+    m = Matcher([{"id": i, "value": p} for i, p in enumerate(needles)], cfg,
+                device=DEVICE)
+    m.finalize()
+    build_s = time.perf_counter() - t0
+    auto = m.automaton
+    assert m.table_format == "compressed", m.table_format
+    t0 = time.perf_counter()
+    cm = m.cascade_model
+    plan_s = time.perf_counter() - t0
+    p = cm.plan
+    assert cm._compressed and cm.records_ok and not cm.records2_ok
+    assert m._pick_engine(total) == "cascade"
+    t0 = time.perf_counter()
+    h = m.device_corpus(docs)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    B, L = h.chunks_d.shape
+    route = cm.bloom_impl()
+    branch = cm.take_branch(L) if route == "take" else "bank bloom"
+    log(f"signature-byte: {len(needles)} needles x {SIG_LEN} random bytes, "
+        f"table_format {m.table_format}: {auto.n_states} states ({auto.n_dense}"
+        f" dense rows, {auto.n_states - auto.n_dense} sparse) x "
+        f"{auto.n_classes} classes, table {auto.table_bytes} bytes (dense "
+        f"would be {auto.n_states * auto.n_classes * 4}); build "
+        f"{build_s:.2f} s, plan {plan_s:.2f} s (host clock); plan "
+        f"{p.reason}, 2^{p.log2_words}-word positional bloom, prefix bloom "
+        f"2^{p.prefix_log2} words, bank bloom "
+        f"{'none' if p.vmem_words is None else p.vmem_words.shape}, win_len "
+        f"{cm.win_len}, records {cm.records_ok}, records2 {cm.records2_ok}, "
+        f"filter {route} ({branch}); {total / 2**20:.0f} MiB in rows "
+        f"[{B}, {L}], upload {up_s:.2f} s")
+
+    def no_host_verify(*args, **kw):
+        raise AssertionError("the records path reached host verify_arrays")
+
+    cm.verify_arrays = no_host_verify
+    warm = m.match_arrays(h)
+    m.match_arrays_many([h] * BATCH)  # warm the batch structure
+    fallbacks = m.stats.records_fallbacks
+    torch.cuda.reset_peak_memory_stats()
+    counts_zeroed(kernels)
+    ms, res, wall = timed_passes(
+        torch, lambda: m.match_arrays_many([h] * BATCH), 1)
+    ms, wall = ms / BATCH, wall / BATCH
+    launched = launched_of(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    assert m.stats.records_fallbacks == fallbacks, "batch fell back"
+    for r in res:
+        for key in r:
+            assert np.array_equal(r[key], warm[key]), key
+    found = set(zip(res[0]["doc"].tolist(), res[0]["pos"].tolist(),
+                    res[0]["pattern"].tolist()))
+    missing = [x for x in planted if x not in found]
+    assert not missing, f"signature-byte: planted not found: {missing[:5]}"
+    n_rec = res[0]["doc"].shape[0]
+    cap_a, cap_r = cm.learned_caps
+    f_ms = cuda_ms(lambda: cm.scan_hits_sampled(
+        h.chunks_d, h.lengths_d, cap_a), 5)
+    c_ms = cuda_ms(lambda: cm.launch_device_records(
+        h.chunks_d, h.lengths_d, h.emit_from_d, cap_a, cap_r), 5)
+    log(f"signature-byte: match_arrays_many([handle] * {BATCH}) over "
+        f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
+        f"({wall:.3f} ms wall), {total / ms / 1e6:.2f} GB/s; "
+        f"{len(planted)}/{len(planted)} planted needles found, {n_rec} "
+        f"matches/pass; hand kernel launches (fused, bloom_word_vmem, "
+        f"bloom_hit, tile) {launched}; device time of the filter "
+        f"{f_ms:.3f} ms, of filter + record verify {c_ms:.3f} ms (capacity "
+        f"{cap_a}); peak device memory {peak} bytes; on {card}")
+    trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card,
+                    passes=1)
+    # bloom_hit at the shapes this path gives it (the prefix probe of the
+    # grouped filter's slots), against its plain version
+    from php_aho_corasick_tpu_torch.ops.filter_torch import bloom_hit_take
+
+    bh = kernels[2]
+    seen = spy_bloom_hit(lambda: cm.scan_hits_sampled(
+        h.chunks_d, h.lengths_d, cap_a))
+    assert len(seen) == len(p.prefix_salts), len(seen)
+    err = 0
+    for words, slots in seen:
+        got = bh(words, slots)
+        want = bloom_hit_take(words, slots)
+        torch.cuda.synchronize()
+        err = max(err, compare([got], [want], f"bloom_hit, signature-byte, "
+                                              f"{slots.numel()} slots"))
+    words, slots = seen[0]
+    k_ms = cuda_ms(lambda: bh(words, slots), 50)
+    p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 50)
+    log(f"bloom_hit at the signature-byte shape ({slots.numel()} slots, "
+        f"{words.numel()} words): bit-equal to bloom_hit_take; {k_ms:.4f} ms "
+        f"(plain {p_ms:.4f} ms); on {card}")
+    # the batch's halves on the host clock: the dispatch of every launch,
+    # the wait for the device, the fetch of the records and their expansion
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = m._records_batch_dispatch([h] * BATCH, cm)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    m._records_batch_finish(*pending, True)
+    t3 = time.perf_counter()
+    log(f"signature-byte batch parts, ms a pass (host clock): dispatch "
+        f"{(t1 - t0) * 1e3 / BATCH:.3f}, wait for the device "
+        f"{(t2 - t1) * 1e3 / BATCH:.3f}, fetch + expansion "
+        f"{(t3 - t2) * 1e3 / BATCH:.3f}; on {card}")
+    pending = assert_no_sync(
+        torch, lambda: m._records_batch_dispatch([h] * 2, cm))
+    m._records_batch_finish(*pending, True)
+    log("sync check (set_sync_debug_mode='error'): no host sync in the "
+        "signature-byte dispatch")
+
+    # 8 MiB against a host walk through CompressedAutomaton.lookup
+    n_slice = (8 << 20) // SIG_DOC
+    t0 = time.perf_counter()
+    ref = host_walk_segments(auto, docs2d[:n_slice])
+    walk_s = time.perf_counter() - t0
+    sel = res[0]["doc"] < n_slice
+    got = np.stack([res[0][k][sel] for k in ("doc", "pos", "pattern")])
+    assert np.array_equal(got, ref), "signature-byte: 8 MiB != host walk"
+    log(f"signature-byte: 8 MiB slice equals the host walk through "
+        f"CompressedAutomaton.lookup ({ref.shape[1]} matches, "
+        f"{walk_s:.1f} s host)")
+
+    # 9c. the compressed dfa engine over the same 8 MiB
+    h8 = m.device_corpus(docs[:n_slice])
+    m.config = dataclasses.replace(cfg, engine="dfa")
+    assert m._pick_engine(h8.total_bytes) == "dfa"
+    counts_zeroed(kernels)
+    d_ms, rdfa, d_wall = timed_passes(torch, lambda: m.match_arrays(h8), 1)
+    d_launched = launched_of(kernels)
+    m.config = cfg
+    want = {k: res[0][k][sel] for k in res[0]}
+    for key in want:
+        assert np.array_equal(rdfa[key], want[key]), f"compressed dfa: {key}"
+    log(f"compressed dfa engine: match_arrays over {h8.total_bytes / 2**20:.0f}"
+        f" MiB equals the cascade's records ({rdfa['doc'].shape[0]} "
+        f"matches); {d_ms:.3f} ms by CUDA events ({d_wall:.3f} ms wall), "
+        f"{h8.total_bytes / d_ms / 1e6:.3f} GB/s, rows "
+        f"{tuple(h8.chunks_d.shape)}, hand kernel launches {d_launched}; on "
+        f"{card}")
+    return launched, err
+
+
+def phase_compressed_path(torch, card, kernels, head):
+    """Phase 9b and 9d: the headline set with ``table_format="compressed"``
+    on phase 4's planted 64 MiB handle (the bank-bloom records chain with
+    the compressed walk), equal to the dense matcher's records and timed;
+    then ``CascadeModel.launch_device`` (the flagged-window verify) on the
+    dense and the compressed models over that handle, whose
+    ``emit_windows_arrays`` equal the records path.  Returns the hand
+    kernels' launches of the timed batch and the fused kernel's largest
+    difference from its plain version at this handle's shape."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+
+    needles, md, hd, rd = head
+    mc = Matcher([{"id": i, "value": p} for i, p in enumerate(needles)],
+                 ScanConfig(backend="device", chunk_len=4096,
+                            table_format="compressed"), device=DEVICE)
+    cc = mc.cascade_model
+    auto = mc.automaton
+    assert mc.table_format == "compressed" and cc._compressed
+    assert cc.bloom_impl() == "pallas_vmem" and cc.records_ok
+    assert hd.fused_phases(cc) is not None
+    warm = mc.match_arrays(hd)
+    for key in rd:
+        assert np.array_equal(warm[key], rd[key]), f"compressed: {key}"
+    mc.match_arrays_many([hd] * BATCH)
+    fallbacks = mc.stats.records_fallbacks
+    counts_zeroed(kernels)
+    ms, res, wall = timed_passes(
+        torch, lambda: mc.match_arrays_many([hd] * BATCH), 1)
+    ms, wall = ms / BATCH, wall / BATCH
+    launched = launched_of(kernels)
+    assert launched[0] >= BATCH, f"fused kernel launched {launched[0]} times"
+    assert mc.stats.records_fallbacks == fallbacks, "batch fell back"
+    for r in res:
+        for key in r:
+            assert np.array_equal(r[key], rd[key]), key
+    log(f"headline-compressed: {auto.n_states} states ({auto.n_dense} dense "
+        f"rows), table {auto.table_bytes} bytes; match_arrays_many([planted "
+        f"{hd.total_bytes / 2**20:.0f} MiB handle] * {BATCH}): {ms:.3f} "
+        f"ms/pass by CUDA events "
+        f"({wall:.3f} ms wall), {res[0]['doc'].shape[0]} matches/pass equal "
+        f"to the dense matcher's, hand kernel launches {launched}; on "
+        f"{card}")
+    trace_breakdown(torch, lambda n: mc.match_arrays_many([hd] * n), card,
+                    passes=1)
+    # the fused kernel at this handle's shape, against its plain version
+    fse = kernels[0]
+    args, kw = extract_args(cc, hd)
+    got, want = fse(*args, **kw), plain(args, kw)
+    torch.cuda.synchronize()
+    err = compare(got, want, "fused, headline-compressed, planted 64 MiB")
+    log(f"fused_sampled_extract at the planted handle's shape (n_grid "
+        f"{kw['n_grid']}): bit-equal to its plain version; on {card}")
+
+    # 9d. the flagged-window verify on both tables
+    for name, cmx in (("dense", md.cascade_model), ("compressed", cc)):
+        phase_g = hd.fused_phases(cmx)
+
+        def launch(cap_a, cap_b):
+            cells, n_d, nf_d, nc_d = cmx.launch_device(
+                hd.chunks_d, hd.lengths_d, cap_a, cap_b, phase_g=phase_g)
+            n, nf, nc = torch.stack([n_d, nf_d, nc_d]).tolist()
+            return cells, n, nf, nc
+
+        cells, nf = cmx.adaptive_chain(launch)
+        cap_a, cap_b = cmx.learned_caps
+        l_ms = cuda_ms(lambda: cmx.launch_device(
+            hd.chunks_d, hd.lengths_d, cap_a, cap_b, phase_g=phase_g), 3)
+        t0 = time.perf_counter()
+        arrays = cmx.emit_windows_arrays(hd.packed, cells[:nf].cpu().numpy(),
+                                         nf)
+        e_ms = (time.perf_counter() - t0) * 1e3
+        for key, a in zip(("doc", "pos", "pattern"), arrays):
+            assert np.array_equal(a, rd[key]), f"launch_device {name}: {key}"
+        log(f"launch_device ({name} table, verify_kv {cmx.verify_kv}): "
+            f"{nf} flagged windows, emit_windows_arrays equals the records "
+            f"path ({arrays[0].shape[0]} matches); filter + flagged verify "
+            f"{l_ms:.3f} ms device time (capacity {cap_a}), host re-walk "
+            f"{e_ms:.1f} ms; on {card}")
+    return launched, err
+
+
+def phase_kgram_path(torch, card, kernels, tile_cell):
+    """Phase 9e: ``engine="kgram"`` on phase 5's 32 MiB tile handle (184
+    states x 7 classes: k = 4 under the 256 MiB budget), timed, equal to
+    the tile and the dense engines on all 32 MiB.  Returns the hand
+    kernels' launches of the timed passes."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+
+    specs, h, res_tile, res_dfa = tile_cell
+    mk = Matcher(specs, ScanConfig(backend="device", engine="kgram",
+                                   match_capacity=TILE_CAPACITY),
+                 device=DEVICE)
+    km = mk.kgram_model
+    assert km.k == 4, km.k
+    assert mk._pick_engine(h.total_bytes) == "kgram"
+    warm = mk.match_arrays(h)
+    counts_zeroed(kernels)
+    ms, res, wall = timed_passes(torch, lambda: mk.match_arrays(h),
+                                 KGRAM_PASSES)
+    launched = launched_of(kernels)
+    for want, what in ((res_tile, "tile"), (res_dfa, "dense")):
+        for key in want:
+            assert np.array_equal(res[key], want[key]), f"kgram/{what}: {key}"
+            assert np.array_equal(warm[key], want[key]), f"kgram/{what}: {key}"
+    kt = km.device_arrays["ktable"]
+    log(f"k-gram engine: k {km.k}, table {kt.numel()} x {kt.dtype} "
+        f"({kt.numel() * kt.element_size()} bytes); match_arrays(tile handle)"
+        f" x {KGRAM_PASSES}: {ms:.3f} ms/pass by CUDA events ({wall:.3f} ms "
+        f"wall), {h.total_bytes / ms / 1e6:.3f} GB/s, {res['doc'].shape[0]} "
+        f"matches/pass equal to the tile and dense engines on all "
+        f"{h.total_bytes / 2**20:.0f} MiB; hand kernel launches {launched}; "
+        f"on {card}")
+    trace_breakdown(torch, lambda n: [mk.match_arrays(h) for _ in range(n)],
+                    card, passes=1)
+    # one pass in parts (host clock): the dispatch of the walk, the wait
+    # for the device, the fetch of the flagged cells, their host re-walk
+    from php_aho_corasick_tpu_torch.ops.matches import (
+        expand_matches_kgram_arrays,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cells, prevs, n_d, _ = km.scan_compact_device(
+        h.chunks_d, h.lengths_d, h.emit_from_d, None, TILE_CAPACITY)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = int(n_d)
+    flat = torch.cat([cells[:n], prevs[:n]]).cpu().numpy()
+    t3 = time.perf_counter()
+    expand_matches_kgram_arrays(mk.automaton, h.packed, km.k, flat[:n],
+                                flat[n:], n)
+    t4 = time.perf_counter()
+    log(f"k-gram pass parts, ms (host clock): dispatch {(t1 - t0) * 1e3:.3f}"
+        f", wait for the device {(t2 - t1) * 1e3:.3f}, fetch of {n} flagged "
+        f"cells {(t3 - t2) * 1e3:.3f}, host re-walk and expansion "
+        f"{(t4 - t3) * 1e3:.3f}; on {card}")
+    return launched
 
 
 def main(argv=None):
@@ -1511,12 +1902,13 @@ def main(argv=None):
         "records dispatch")
 
     # 4. planted matches against a host DFA walk
-    planted_check(m, needles, base, int(DENSITY * 1e9), "planted corpus")
+    hd, rd = planted_check(m, needles, base, int(DENSITY * 1e9),
+                           "planted corpus")
 
     # 5. the tile path
-    tile_kernel = phase_tile_path(torch, base, card, sst,
-                                  _scan_states_tile_torch,
-                                  ptxas_lines(report, "scan_states_tile"))
+    tile_cell, tile_kernel = phase_tile_path(
+        torch, base, card, sst, _scan_states_tile_torch,
+        ptxas_lines(report, "scan_states_tile"))
     tile_kernel["max_abs_err"] = max(tile_kernel["max_abs_err"], tile_err,
                                      sync_err)
 
@@ -1534,14 +1926,27 @@ def main(argv=None):
     hit_kernel["launches"] += take_hits
     hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], take_err)
 
-    # 9. timings and the last line
+    # 9. the compressed table, the flagged-window verify, the k-gram engine
+    kernels = (fse, bwv, bh, sst)
+    sig_launched, sig_err = phase_signature_path(torch, card, kernels)
+    comp_launched, comp_err = phase_compressed_path(
+        torch, card, kernels, (needles, m, hd, rd))
+    kgram_launched = phase_kgram_path(torch, card, kernels, tile_cell)
+    hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], sig_err)
+    # each count in the order of ``kernels``: fused, rows, bloom_hit, tile
+    extra = [sum(c) for c in zip(sig_launched, comp_launched, kgram_launched)]
+    launches += extra[0]
+    for k, n in zip((rows_kernel, hit_kernel, tile_kernel), extra[1:]):
+        k["launches"] += n
+
+    # 10. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",
         "source": "php_aho_corasick_tpu_torch/csrc/fused_sampled_extract.cu",
         "replaces": "php_aho_corasick_tpu/ops/filter_pallas.py:765",
         "launches": launches,
-        "max_abs_err": max(err1, err_fc, err2),
+        "max_abs_err": max(err1, err_fc, err2, comp_err),
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": b_ms,

@@ -10,13 +10,17 @@ columnar scans (:meth:`Matcher.match_arrays`,
 API's field name) and ``pattern`` (index into the accepted patterns), in
 reference emission order.
 
-Scans go to one of three engines (:meth:`Matcher._pick_engine`): the
+Scans go to one of four engines (:meth:`Matcher._pick_engine`): the
 sampled cascade for large scans, the tile engine
-(``csrc/scan_states_tile.cu``) for small automata, and the dense DFA
-otherwise; scans of at most ``host_scan_threshold`` bytes run on the host
+(``csrc/scan_states_tile.cu``) for small automata, the k-gram DFA (k
+bytes a gather) for large scans, and the 1-gram DFA otherwise; scans of
+at most ``host_scan_threshold`` bytes run on the host
 (``backend="auto"``).  A forced ``engine="cascade"`` also serves the
 anchored plan, whose candidates are verified on the host
-(``CascadeModel.run_arrays``).
+(``CascadeModel.run_arrays``).  Needle sets whose dense ``[S, C]`` table
+would exceed ``dense_table_max_bytes`` finalize to the compressed table
+(:attr:`Matcher.table_format`), served by the sampled cascade or the
+compressed DFA.
 
 A matcher runs on one device: CUDA unless the caller passes
 ``device="cpu"``.  Where the path meets a mode this port does not have
@@ -35,7 +39,12 @@ from .config import DEFAULT_CONFIG, ScanConfig
 from .core import TrieBuilder, compile_trie, empty_automaton
 from .errors import AddStatus, AhoError, warn
 from .models.dense_dfa import DenseDfaModel
-from .ops.matches import PackedRows, expand_matches_arrays, pack_documents
+from .ops.matches import (
+    PackedRows,
+    expand_matches_arrays,
+    expand_matches_kgram_arrays,
+    pack_documents,
+)
 from .patterns import Pattern, parse_batch
 from .utils import next_pow2 as _next_pow2
 
@@ -169,6 +178,7 @@ class Matcher:
         self._used_bytes: set = set()
         self._cascade = _UNSET
         self._tile = _UNSET
+        self._kmodel = None
         self.stats = ScanStats()
         self._finalized = False
         self._valid = True
@@ -205,10 +215,17 @@ class Matcher:
             raise StateError("matcher is closed")
         if self._finalized:
             return False
+        model_cls = DenseDfaModel
         if not self._patterns:
             self._auto = empty_automaton()
         elif self._use_compressed_table():
-            raise _not_ported("the compressed transition table", 7)
+            from .core.automaton import compile_trie_compressed
+            from .models.compressed_dfa import CompressedDfaModel
+
+            self._auto = compile_trie_compressed(
+                self._trie, [len(p) for p in self._patterns]
+            )
+            model_cls = CompressedDfaModel
         else:
             self._auto = compile_trie(
                 self._trie,
@@ -216,7 +233,7 @@ class Matcher:
                 allow_int16=self.config.allow_int16_states,
             )
         self._trie.closed = True
-        self._model = DenseDfaModel(self._auto, self.config, self.device)
+        self._model = model_cls(self._auto, self.config, self.device)
         self._finalized = True
         return True
 
@@ -229,17 +246,33 @@ class Matcher:
         dtype_bytes = 2 if (self.config.allow_int16_states and S <= 32767) else 4
         return S * C * dtype_bytes > self.config.dense_table_max_bytes
 
+    @property
+    def table_format(self) -> str:
+        """Resolved transition-table layout ("dense" or "compressed")."""
+        from .core.tables import CompressedAutomaton
+
+        if not self._finalized:
+            self.finalize()
+        return (
+            "compressed"
+            if isinstance(self._auto, CompressedAutomaton)
+            else "dense"
+        )
+
     # ------------------------------------------------------------ query
 
     @property
     def automaton(self):
-        """The frozen compiled automaton (:class:`CompiledAutomaton`)."""
+        """The frozen compiled automaton (:class:`CompiledAutomaton`, or
+        :class:`~.core.tables.CompressedAutomaton` for byte-dense
+        signature-scale sets: see :attr:`table_format`)."""
         if not self._finalized:
             self.finalize()
         return self._auto
 
     @property
-    def model(self) -> DenseDfaModel:
+    def model(self):
+        """The device scan model (DenseDfaModel or CompressedDfaModel)."""
         if not self._finalized:
             self.finalize()
         return self._model
@@ -269,10 +302,30 @@ class Matcher:
         return self._cascade
 
     @property
+    def kgram_model(self):
+        """Lazily built k-gram DFA model (models/kgram_dfa.py); the dense
+        table format only."""
+        if self._kmodel is None:
+            if self.table_format == "compressed":
+                raise AhoError(
+                    "k-gram engine requires the dense table format"
+                )
+            from .models.kgram_dfa import KgramDfaModel
+
+            self._kmodel = KgramDfaModel(
+                self.automaton, self.config, self.device
+            )
+        return self._kmodel
+
+    @property
     def tile_model(self):
         """Shared-memory tile DFA model (models/tile_dfa.py); ``None``
-        when the automaton exceeds the tile budget."""
+        when the automaton exceeds the tile budget or the table is
+        compressed."""
         if self._tile is _UNSET:
+            if self.table_format == "compressed":
+                self._tile = None
+                return None
             from .models.tile_dfa import TileDfaModel, tile_eligible
 
             self._tile = (
@@ -284,15 +337,22 @@ class Matcher:
 
     def _pick_engine(self, total_payload: int) -> str:
         """Engine of a device scan.  A forced engine is taken as given
-        (``"kgram"`` is not ported); ``auto`` takes the sampled cascade
-        for scans of at least ``cascade_min_bytes``, else the tile engine
-        when the automaton fits it, else the dense DFA.  The same rule
-        holds on every device, so the CPU runs the card's route."""
+        (the compressed table has no k-gram or tile engine and raises for
+        them).  ``auto`` takes the sampled cascade for scans of at least
+        ``cascade_min_bytes`` (on a compressed table only where its
+        windows verify on the device), else, on the dense table, the tile
+        engine when the automaton fits it, the k-gram engine for scans of
+        at least ``kgram_min_bytes`` when ``k >= 2``, else the 1-gram DFA
+        (``"dfa"``: the compressed walk on a compressed table).  The same
+        rule holds on every device, so the CPU runs the card's route."""
         cfg = self.config
-        if cfg.engine == "kgram":
-            raise _not_ported("the 'kgram' engine", 7)
-        if cfg.engine == "dfa":
-            return "dfa"
+        compressed = self.table_format == "compressed"
+        if compressed and cfg.engine in ("kgram", "tile"):
+            raise ValueError(
+                f"engine {cfg.engine!r} requires the dense table format"
+            )
+        if cfg.engine in ("dfa", "kgram"):
+            return cfg.engine
         if cfg.engine == "tile":
             if self.tile_model is None:
                 raise ValueError(
@@ -310,12 +370,18 @@ class Matcher:
             if total_payload >= cfg.cascade_min_bytes
             else None
         )
-        if cm is not None and cm.plan.mode == "sampled":
+        if (
+            cm is not None
+            and cm.plan.mode == "sampled"
+            and (cm.device_verify_ok or not compressed)
+        ):
             return "cascade"
+        if compressed:
+            return "dfa"
         if self.tile_model is not None:
             return "tile"
-        # the reference takes the k-gram engine here for scans of at least
-        # kgram_min_bytes; its records are the dense engine's
+        if total_payload >= cfg.kgram_min_bytes and self.kgram_model.k >= 2:
+            return "kgram"
         return "dfa"
 
     # ------------------------------------------------------------ scans
@@ -477,7 +543,12 @@ class Matcher:
                 dc.packed, capacity, dev_inputs=dc.dev_inputs_for(cm)
             )
             return ("cascade",) + tuple(arrays)
-        model = self.tile_model if engine == "tile" else self._model
+        if engine == "tile":
+            model = self.tile_model
+        elif engine == "kgram":
+            model = self.kgram_model
+        else:
+            model = self._model
         while True:
             idx, sts, n, _ = model.scan_compact_device(
                 dc.chunks_d, dc.lengths_d, dc.emit_from_d, None, capacity
@@ -488,9 +559,14 @@ class Matcher:
             capacity = _next_pow2(n)
         # one fetch of the occupied prefix of both buffers
         flat = torch.cat([idx[:n], sts[:n]]).cpu().numpy()
-        arrays = expand_matches_arrays(
-            self._auto, dc.packed, flat[:n], flat[n:], n
-        )
+        if engine == "kgram":
+            arrays = expand_matches_kgram_arrays(
+                self._auto, dc.packed, model.k, flat[:n], flat[n:], n
+            )
+        else:
+            arrays = expand_matches_arrays(
+                self._auto, dc.packed, flat[:n], flat[n:], n
+            )
         return (engine,) + tuple(arrays)
 
     def _launch_groups(self, docs: List[bytes]) -> List[List[int]]:

@@ -2,11 +2,14 @@
 
 See ops/filter_torch.py for the device chain.  This module decides when the
 cascade applies, builds the per-stage hashed blooms from the pattern set,
-and serves a scan by one of two routes (:meth:`CascadeModel.run_arrays`):
+and serves a scan by one of three routes (:meth:`CascadeModel.run_arrays`):
 sampled plans whose windows fit 31 bytes emit match records from the
-device; the anchored plan and sampled plans with longer windows fetch
-candidate starts and verify them exactly on the host with a vectorized
-trie walk (goto-only, detected via ``state_depth``).
+device; sampled plans whose windows fit 32 bytes but not the records
+gate flag matching windows on the device and re-walk them on the host;
+the anchored plan and sampled plans with longer windows fetch candidate
+starts and verify them exactly on the host with a vectorized trie walk
+(goto-only, detected via ``state_depth``).  The device walks run on the
+dense table or, for signature-scale sets, the compressed one.
 
 The start-based paradigm is the "failure-less Aho-Corasick" family
 (cf. PFAC, arXiv:1811.10498, PAPERS.md) — here with a vectorized bloom
@@ -25,7 +28,7 @@ start) first (``tests/test1.phpt:99-118``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -532,12 +535,6 @@ def plan_cascade(
     )
 
 
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1 item {item}"
-    )
-
-
 class CascadeModel:
     """Device candidate filter + exact verifier (device records or the
     host walk)."""
@@ -547,8 +544,8 @@ class CascadeModel:
         auto: CompiledAutomaton,
         plan: CascadePlan,
         config: ScanConfig,
-        dense_model=None,  # DenseDfaModel: shares its device table with
-        # the window verifier
+        dense_model=None,  # DenseDfaModel or CompressedDfaModel: shares
+        # its device table with the window verifier
         stats=None,  # utils.logging.ScanStats: capacity-retry counters
         device=None,
     ) -> None:
@@ -565,6 +562,7 @@ class CascadeModel:
         )
         self._dev = None
         self._verify2_table = None
+        self._verify_ktable = None
         #: adaptive capacities for the speculative filter -> verify chain
         #: (learned from each launch's observed counts; may shrink)
         self._cap_hits = 4096
@@ -629,6 +627,9 @@ class CascadeModel:
 
     @property
     def device_verify_ok(self) -> bool:
+        """Device window verification needs the final-step bitmask to fit
+        32 bits and a DFA model (dense or compressed) to share its
+        table."""
         return (
             self.plan.mode == "sampled"
             and self.win_len <= 32
@@ -685,6 +686,45 @@ class CascadeModel:
                 self.device
             )
         return self._verify2_table
+
+    @property
+    def verify_kv(self) -> int:
+        """Super-step width of the flagged-window verifier's k-gram walk
+        (1 = the plain per-class walk): the largest k in 2-4 whose composed
+        table fits :attr:`ScanConfig.verify_kgram_bytes`.  Windows are not
+        row-aligned, so k need not divide anything."""
+        if self._compressed or self.auto.n_classes > 255:
+            return 1  # byte-sized classes only
+        from ..ops.scan_torch import KGRAM_MID_FLAG
+
+        S, C = self.auto.n_states, self.auto.n_classes
+        esize = 2 if (S < (1 << 15) and self.config.allow_int16_states) else 4
+        if esize == 4 and S >= KGRAM_MID_FLAG:
+            return 1
+        kv = 1
+        for k in (2, 3, 4):
+            if (
+                S * C**k * esize <= self.config.verify_kgram_bytes
+                and S * C**k < 2**31
+            ):
+                kv = k
+        return kv
+
+    @property
+    def verify_ktable_dev(self):
+        """Lazy device upload of the verify k-gram table (composed once
+        on the host)."""
+        if self._verify_ktable is None:
+            import torch
+
+            from .kgram_dfa import KgramDfaModel
+
+            km = KgramDfaModel(self.auto, self.config, self.device,
+                               k=self.verify_kv)
+            self._verify_ktable = torch.from_numpy(km.ktable_host).to(
+                self.device
+            )
+        return self._verify_ktable
 
     @property
     def device_arrays(self):
@@ -804,6 +844,48 @@ class CascadeModel:
         if self._cap_coarse > floor and nc <= self._cap_coarse // 2:
             self._cap_coarse = max(floor, self._cap_coarse // 2)
 
+    def launch_device(self, chunks_d, lengths_d, cap_a, cap_b,
+                      phase_g=None):
+        """One speculative filter -> flagged-window verify chain, entirely
+        on the device.  Returns ``(cells, n_d, nf_d, nc_d)`` as device
+        values (no host fetch); the counts are checked against ``cap_a``,
+        ``cap_b`` and ``self._cap_coarse`` after the fetch (overflow:
+        retry bigger).  The verifier is the k-gram walk where
+        :attr:`verify_kv` > 1, the compressed walk on a compressed table,
+        else the per-class dense walk."""
+        from ..ops.filter_torch import (
+            verify_windows, verify_windows_compressed, verify_windows_kgram,
+        )
+
+        dd = self.dense_model.device_arrays
+        dev = self.device_arrays
+        idx, _lw, _sw, n_d, nc_d = self.scan_hits_sampled(
+            chunks_d, lengths_d, cap_a, phase_g=phase_g
+        )
+        win = dict(stride=self.plan.stride, win_len=self.win_len,
+                   capacity=cap_b, n_hits=cap_a)
+        if self._compressed:
+            cells, nf_d = verify_windows_compressed(
+                dd["dense_flat"], dd["meta"], dd["exc_target"],
+                dev["byte_class"], dev["used_bytes"], chunks_d, lengths_d,
+                idx, dd["dense_final_start"], dd["final_start"],
+                n_classes=self.auto.n_classes, n_dense=self.auto.n_dense,
+                **win,
+            )
+        elif self.verify_kv > 1:
+            cells, nf_d = verify_windows_kgram(
+                self.verify_ktable_dev, dev["byte_class"], dev["used_bytes"],
+                chunks_d, lengths_d, idx, dd["final_start"],
+                n_classes=self.auto.n_classes, kv=self.verify_kv, **win,
+            )
+        else:
+            cells, nf_d = verify_windows(
+                dd["table_flat"], dev["byte_class"], dev["used_bytes"],
+                chunks_d, lengths_d, idx, dd["final_start"],
+                n_classes=self.auto.n_classes, **win,
+            )
+        return cells, n_d, nf_d, nc_d
+
     def launch_device_records(
         self, chunks_d, lengths_d, emit_from_d, cap_a, cap_r, phase_g=None,
     ):
@@ -812,42 +894,55 @@ class CascadeModel:
         (no host fetch), so callers can keep several chains in flight.
         The bank-bloom route runs :func:`records_chain_vmem`; the take
         route runs :meth:`scan_hits_sampled` and the one-class-a-step
-        :func:`verify_windows_records`, as the reference does."""
+        verifier (:func:`verify_windows_records`, or
+        :func:`verify_windows_records_compressed` on a compressed table),
+        as the reference does."""
         from ..ops.filter_torch import (
             records_chain_vmem, verify_windows_records,
+            verify_windows_records_compressed,
         )
 
-        if self._compressed:
-            raise _not_ported("the compressed-table verifier", 7)
         dd = self.dense_model.device_arrays
         dev = self.device_arrays
         p = self.plan
+        comp = self._compressed
+        win = dict(n_classes=self.auto.n_classes, stride=p.stride,
+                   win_len=self.win_len, capacity=cap_r, n_hits=cap_a)
         if self.bloom_impl() != "pallas_vmem":
             idx, _lw, _sw, n_d, nc_d = self.scan_hits_sampled(
                 chunks_d, lengths_d, cap_a, phase_g=phase_g
             )
-            rec_cell, rec_pack, nr_d = verify_windows_records(
-                dd["table_flat"],
-                dev["byte_class"],
-                dev["used_bytes"],
-                chunks_d,
-                lengths_d,
-                emit_from_d,
-                idx,
-                dd["final_start"],
-                n_classes=self.auto.n_classes,
-                stride=p.stride,
-                win_len=self.win_len,
-                capacity=cap_r,
-                n_hits=cap_a,
-            )
+            if comp:
+                rec_cell, rec_pack, nr_d = verify_windows_records_compressed(
+                    dd["dense_flat"], dd["meta"], dd["exc_target"],
+                    dev["byte_class"], dev["used_bytes"], chunks_d,
+                    lengths_d, emit_from_d, idx, dd["dense_final_start"],
+                    dd["final_start"], n_dense=self.auto.n_dense, **win,
+                )
+            else:
+                rec_cell, rec_pack, nr_d = verify_windows_records(
+                    dd["table_flat"], dev["byte_class"], dev["used_bytes"],
+                    chunks_d, lengths_d, emit_from_d, idx,
+                    dd["final_start"], **win,
+                )
             return rec_cell, rec_pack, n_d, nr_d, nc_d
         use_k2 = self.records2_ok
+        if comp:
+            tflat = dd["dense_flat"]
+        elif use_k2:
+            tflat = self.verify2_table_dev
+        else:
+            tflat = dd["table_flat"]
+        extra = dict(
+            compressed=True, meta=dd["meta"], exc_target=dd["exc_target"],
+            dense_final_start=dd["dense_final_start"],
+            n_dense=self.auto.n_dense,
+        ) if comp else dict(use_k2=use_k2)
         return records_chain_vmem(
             dev["vmem_table"],
             dev["sampled_words"],
             dev.get("prefix_words"),
-            self.verify2_table_dev if use_k2 else dd["table_flat"],
+            tflat,
             dev["byte_class"],
             dev["used_bytes"],
             chunks_d,
@@ -872,7 +967,7 @@ class CascadeModel:
             n_classes=self.auto.n_classes,
             win_len=self.win_len,
             cap_r=cap_r,
-            use_k2=use_k2,
+            **extra,
         )
 
     def _device_inputs(self, packed: PackedRows, dev_inputs):
@@ -892,9 +987,12 @@ class CascadeModel:
     def run_arrays(self, packed: PackedRows, capacity: int, dev_inputs=None):
         """Full cascade on one device; returns ``(docs, end_pos, pids)``
         arrays in reference emission order.  Sampled plans whose windows
-        fit the records gate emit match records from the device; the
-        anchored plan and sampled plans with windows over 32 bytes verify
-        fetched candidate starts on the host.
+        fit the records gate emit match records from the device; other
+        sampled plans with windows of at most 32 bytes flag matching
+        windows on the device and re-walk them on the host; the anchored
+        plan and sampled plans with longer windows verify fetched
+        candidate starts on the host.  Counts stay device values until
+        one fetch a launch.
 
         ``dev_inputs``: optional ``(chunks, lengths, emit_from[,
         phase_g])`` already on the device (resident-corpus callers)."""
@@ -903,30 +1001,42 @@ class CascadeModel:
         if not (self.plan.mode == "sampled" and self.device_verify_ok):
             idx_np, n = self.candidates_np(packed, capacity, dev_inputs)
             return self.verify_arrays(packed, idx_np, n)
-        if not self.records_ok:
-            raise _not_ported(
-                f"the flagged-window device verify (win_len={self.win_len}, "
-                f"states={self.auto.n_states})", "6b"
-            )
         chunks_d, lengths_d, emit_from_d, phase_g = self._device_inputs(
             packed, dev_inputs
         )
+        z = np.zeros(0, np.int64)
+        if self.records_ok:
 
-        def launch_r(cap_a, cap_r):
-            rc, rp, n_d, nr_d, nc_d = self.launch_device_records(
-                chunks_d, lengths_d, emit_from_d, cap_a, cap_r,
-                phase_g=phase_g,
+            def launch_r(cap_a, cap_r):
+                rc, rp, n_d, nr_d, nc_d = self.launch_device_records(
+                    chunks_d, lengths_d, emit_from_d, cap_a, cap_r,
+                    phase_g=phase_g,
+                )
+                n, nr, nc = torch.stack([n_d, nr_d, nc_d]).tolist()
+                return (rc, rp), n, nr, nc
+
+            (rc, rp), nr = self.adaptive_chain(launch_r)
+            if nr == 0:
+                return z, z, z
+            return self.emit_records_arrays(
+                packed, rc[:nr].cpu().numpy(), rp[:nr].cpu().numpy(), nr
             )
-            n, nr, nc = torch.stack([n_d, nr_d, nc_d]).tolist()
-            return (rc, rp), n, nr, nc
 
-        (rc, rp), nr = self.adaptive_chain(launch_r)
-        if nr == 0:
-            z = np.zeros(0, np.int64)
+        def launch(cap_a, cap_b):
+            cells, n_d, nf_d, nc_d = self.launch_device(
+                chunks_d, lengths_d, cap_a, cap_b, phase_g=phase_g,
+            )
+            n, nf, nc = torch.stack([n_d, nf_d, nc_d]).tolist()
+            return cells, n, nf, nc
+
+        cells, nf = self.adaptive_chain(launch)
+        if nf == 0:
             return z, z, z
-        return self.emit_records_arrays(
-            packed, rc[:nr].cpu().numpy(), rp[:nr].cpu().numpy(), nr
-        )
+        return self.emit_windows_arrays(packed, cells[:nf].cpu().numpy(), nf)
+
+    def run(self, packed: PackedRows, capacity: int, dev_inputs=None):
+        """Iterator facade over :meth:`run_arrays`."""
+        return _records_iter(*self.run_arrays(packed, capacity, dev_inputs))
 
     def emit_records_arrays(
         self,
@@ -1075,6 +1185,14 @@ class CascadeModel:
         docs = packed.doc_id[arr[0, order]].astype(np.int64)
         ends = packed.global_off[arr[0, order]] + arr[1, order]
         return docs, ends, arr[3, order]
+
+    def emit_windows(
+        self, packed: PackedRows, win_cells: np.ndarray, n_flagged: int
+    ) -> Iterator[Tuple[int, int, np.ndarray]]:
+        """Iterator facade over :meth:`emit_windows_arrays`."""
+        return _records_iter(
+            *self.emit_windows_arrays(packed, win_cells, n_flagged)
+        )
 
     def scan_hits_sampled(
         self, chunks, lengths, capacity: int,
@@ -1324,3 +1442,18 @@ class CascadeModel:
         docs = packed.doc_id[r[order]].astype(np.int64)
         ends = packed.global_off[r[order]] + e[order]
         return docs, ends, pid[order].astype(np.int64)
+
+    def verify(
+        self,
+        packed: PackedRows,
+        start_idx: np.ndarray,
+        n_cand: int,
+    ) -> Iterator[Tuple[int, int, np.ndarray]]:
+        """Iterator facade over :meth:`verify_arrays`."""
+        return _records_iter(*self.verify_arrays(packed, start_idx, n_cand))
+
+
+def _records_iter(docs, ends, pids) -> Iterator[Tuple[int, int, np.ndarray]]:
+    """``(doc, end_pos, pattern_ids)`` a record, in order."""
+    for i in range(docs.shape[0]):
+        yield int(docs[i]), int(ends[i]), pids[i : i + 1]

@@ -34,7 +34,15 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .scan_torch import INT32_MAX, _classes, blocked_nonzero
+from .scan_torch import (
+    INT32_MAX,
+    _classes,
+    _nonzero_static,
+    blocked_nonzero,
+    compressed_final,
+    compressed_step,
+    kgram_decode,
+)
 
 KNUTH = 2654435761  # Knuth multiplicative hash constant
 #: polynomial rolling-hash base of the sampled gram codes (FNV-1 prime)
@@ -649,7 +657,8 @@ def _window_geometry(chunks, lengths, emit_from, grid_idx, stride, n_hits):
     w0 = (g % M) * stride - (stride - 1)
     base = b * L + w0
     bl = b.long()
-    return grid_idx, H, active, w0, base, lengths[bl], emit_from[bl]
+    row_emit = None if emit_from is None else emit_from[bl]
+    return grid_idx, H, active, w0, base, lengths[bl], row_emit
 
 
 def _emit_records(grid_idx, H, cnt, slots, capacity):
@@ -670,8 +679,8 @@ def _emit_records(grid_idx, H, cnt, slots, capacity):
     return rec_cell, rec_pack, n_rec
 
 
-def _record_step(s_j, pos_j, valid_j, j, row_emit, final_start, cnt, slots):
-    fin = (s_j >= final_start) & valid_j & (pos_j >= row_emit)
+def _record_step(s_j, final_j, pos_j, valid_j, j, row_emit, cnt, slots):
+    fin = final_j & valid_j & (pos_j >= row_emit)
     pack = s_j * 32 + j
     for k in range(VERIFY_KR):
         slots[k] = torch.where(fin & (cnt == k), pack, slots[k])
@@ -715,8 +724,54 @@ def verify_windows_records(
         valid_j = (pos_j >= 0) & (pos_j < row_len) & active
         cls_j = torch.where(valid_j, cls[:, j], 0)
         state = table_flat[state.long() * n_classes + cls_j].to(torch.int32)
-        cnt = _record_step(state, pos_j, valid_j, j, row_emit, final_start,
-                           cnt, slots)
+        cnt = _record_step(state, state >= final_start, pos_j, valid_j, j,
+                           row_emit, cnt, slots)
+    return _emit_records(grid_idx, H, cnt, slots, capacity)
+
+
+def verify_windows_records_compressed(
+    dense_flat: torch.Tensor,  # [D*C] int32 dense-bank rows
+    meta: torch.Tensor,  # [S-D] int32 skip * EXC_PACK + exc_class + 1
+    exc_target: torch.Tensor,  # [S-D] int32
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    emit_from: torch.Tensor,  # [B] int32
+    grid_idx: torch.Tensor,  # [>=n_hits] int32 b*M+m hits, INT32_MAX-padded
+    dense_final_start: torch.Tensor,  # scalar int32
+    final_start: torch.Tensor,  # scalar int32
+    *,
+    n_classes: int,
+    n_dense: int,
+    stride: int,
+    win_len: int,  # <= 31 (REC_OVERFLOW_J is reserved)
+    capacity: int,
+    n_hits: int,
+):
+    """:func:`verify_windows_records` over the compressed table: the walk
+    is the 3-gather compressed step and finality its two-range
+    predicate, with the same record slots and overflow sentinel."""
+    grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
+        chunks, lengths, emit_from, grid_idx, stride, n_hits
+    )
+    W = win_len
+    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+    dev = chunks.device
+    state = torch.zeros(H, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(H, dtype=torch.int32, device=dev)
+    slots = [torch.zeros(H, dtype=torch.int32, device=dev)
+             for _ in range(VERIFY_KR)]
+    for j in range(W):
+        pos_j = w0 + j
+        valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+        c = torch.where(valid_j, cls[:, j], 0)
+        state = compressed_step(state, c, dense_flat, meta, exc_target,
+                                n_classes, n_dense)
+        fin = compressed_final(state, n_dense, dense_final_start,
+                               final_start)
+        cnt = _record_step(state, fin, pos_j, valid_j, j, row_emit, cnt,
+                           slots)
     return _emit_records(grid_idx, H, cnt, slots, capacity)
 
 
@@ -770,11 +825,11 @@ def verify_windows_records2(
         ].to(torch.int32)
         s1 = entry >> REC2_BITS
         s2 = entry & smask
-        cnt = _record_step(s1, pos1, valid1, j1, row_emit, final_start,
-                           cnt, slots)
+        cnt = _record_step(s1, s1 >= final_start, pos1, valid1, j1,
+                           row_emit, cnt, slots)
         if j2 < W:
-            cnt = _record_step(s2, pos2, valid2, j2, row_emit, final_start,
-                               cnt, slots)
+            cnt = _record_step(s2, s2 >= final_start, pos2, valid2, j2,
+                               row_emit, cnt, slots)
         state = s2
     return _emit_records(grid_idx, H, cnt, slots, capacity)
 
@@ -783,7 +838,8 @@ def records_chain_vmem(
     vmem_table,
     words,
     prefix_words,
-    table_flat,  # dense [S*C], or the packed 2-step table with use_k2
+    table_flat,  # dense [S*C], the packed 2-step table with use_k2, or
+    # the dense-bank rows with compressed
     byte_class,
     used_bytes,
     chunks,
@@ -811,15 +867,15 @@ def records_chain_vmem(
     cap_r: int,
     compressed: bool = False,
     use_k2: bool = False,
+    meta=None,  # compressed only
+    exc_target=None,  # compressed only
+    dense_final_start=None,  # compressed only
+    n_dense: int = 0,  # compressed only
 ):
-    """Fused filter + record verification.  Returns ``(rec_cell,
-    rec_pack, n_hits, n_rec, n_coarse)`` as device values (no host
-    fetch); retry bigger when a count exceeds its capacity."""
-    if compressed:
-        raise NotImplementedError(
-            "compressed-table record verify is not ported yet: "
-            "ROADMAP queue 1 item 7"
-        )
+    """Fused filter + record verification (the compressed table's walk
+    with ``compressed``).  Returns ``(rec_cell, rec_pack, n_hits, n_rec,
+    n_coarse)`` as device values (no host fetch); retry bigger when a
+    count exceeds its capacity."""
     idx, _lw, _sw, n, nc = filter_hits_sampled_vmem(
         vmem_table, words, chunks, lengths, min_long_len,
         q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
@@ -829,6 +885,14 @@ def records_chain_vmem(
         prefix_salts=prefix_salts, prefix_log2=prefix_log2,
         prefix_len=prefix_len, phase_g=phase_g,
     )
+    if compressed:
+        rc, rp, nr = verify_windows_records_compressed(
+            table_flat, meta, exc_target, byte_class, used_bytes, chunks,
+            lengths, emit_from, idx, dense_final_start, final_start,
+            n_classes=n_classes, n_dense=n_dense, stride=stride,
+            win_len=win_len, capacity=cap_r, n_hits=cap_a,
+        )
+        return rc, rp, n, nr, nc
     verify = verify_windows_records2 if use_k2 else verify_windows_records
     rc, rp, nr = verify(
         table_flat, byte_class, used_bytes, chunks, lengths, emit_from,
@@ -837,6 +901,142 @@ def records_chain_vmem(
         capacity=cap_r, n_hits=cap_a,
     )
     return rc, rp, n, nr, nc
+
+
+def _flagged_cells(grid_idx, H, flagged, capacity):
+    """Grid ids of the flagged windows (ascending, INT32_MAX-padded) and
+    their count."""
+    slot = _nonzero_static(flagged, capacity)
+    safe = torch.clamp(slot, max=H - 1)
+    win_cell = torch.where(slot < INT32_MAX, grid_idx[safe], INT32_MAX)
+    return win_cell, flagged.sum(dtype=torch.int32)
+
+
+def verify_windows(
+    table_flat: torch.Tensor,  # [S*C] int16/int32 dense transition table
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    grid_idx: torch.Tensor,  # [>=n_hits] int32 b*M+m hits, INT32_MAX-padded
+    final_start: torch.Tensor,  # scalar int32
+    *,
+    n_classes: int,
+    stride: int,
+    win_len: int,  # (stride - 1) + max pattern length, <= 32
+    capacity: int,
+    n_hits: int,
+):
+    """Flagged-window verification: walk the dense DFA over each hit's
+    window ``[p - stride + 1, p + max_len)`` from the root and flag the
+    windows that reach a final state at a position inside their row
+    (outside positions take class 0, which pins the walk at the root).
+    Returns ``(win_cell [capacity], n_flagged)``: grid ids of the flagged
+    windows, ascending, INT32_MAX-padded.  The host re-walks only those
+    (``CascadeModel.emit_windows_arrays``)."""
+    grid_idx, H, active, w0, base, row_len, _ = _window_geometry(
+        chunks, lengths, None, grid_idx, stride, n_hits
+    )
+    cls = _window_classes(byte_class, used_bytes, chunks, base, win_len)
+    state = torch.zeros(H, dtype=torch.int32, device=chunks.device)
+    flagged = torch.zeros(H, dtype=torch.bool, device=chunks.device)
+    for j in range(win_len):
+        pos_j = w0 + j
+        valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+        cls_j = torch.where(valid_j, cls[:, j], 0)
+        state = table_flat[state.long() * n_classes + cls_j].to(torch.int32)
+        flagged |= (state >= final_start) & valid_j
+    return _flagged_cells(grid_idx, H, flagged, capacity)
+
+
+def verify_windows_kgram(
+    ktable: torch.Tensor,  # [S * C^kv] int16/int32 packed k-gram entries
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    grid_idx: torch.Tensor,  # [>=n_hits] int32 b*M+m hits, INT32_MAX-padded
+    final_start: torch.Tensor,  # scalar int32
+    *,
+    n_classes: int,
+    kv: int,
+    stride: int,
+    win_len: int,
+    capacity: int,
+    n_hits: int,
+):
+    """:func:`verify_windows` in ``kv``-class super-steps through the
+    k-gram table (``models/kgram_dfa.py``): its mid-final flag covers the
+    positions strictly inside a step, and the end state's finality is one
+    compare, so the window takes ``ceil(win_len / kv)`` dependent gathers.
+    Positions outside the row and past the window take class 0, which
+    leads every state to the root: a masked position is never final, so
+    the flags equal the 1-step walk's.  Requires ``n_classes <= 255``."""
+    assert n_classes <= 255, "kgram verify requires byte-sized classes"
+    grid_idx, H, active, w0, base, row_len, _ = _window_geometry(
+        chunks, lengths, None, grid_idx, stride, n_hits
+    )
+    W = win_len
+    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+    dev = chunks.device
+    ck = n_classes**kv
+    state = torch.zeros(H, dtype=torch.int32, device=dev)
+    flagged = torch.zeros(H, dtype=torch.bool, device=dev)
+    zero = torch.zeros(H, dtype=torch.int32, device=dev)
+    for t in range(-(-W // kv)):
+        code = zero
+        for d in range(kv):
+            j = t * kv + d
+            if j < W:
+                pos_j = w0 + j
+                valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+                c = torch.where(valid_j, cls[:, j], 0)
+            else:
+                c = zero
+            code = code * n_classes + c
+        state, mid = kgram_decode(ktable[state.long() * ck + code])
+        flagged |= mid | (state >= final_start)
+    return _flagged_cells(grid_idx, H, flagged, capacity)
+
+
+def verify_windows_compressed(
+    dense_flat: torch.Tensor,  # [D*C] int32 dense-bank rows
+    meta: torch.Tensor,  # [S-D] int32 skip * EXC_PACK + exc_class + 1
+    exc_target: torch.Tensor,  # [S-D] int32
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    grid_idx: torch.Tensor,  # [>=n_hits] int32 b*M+m hits, INT32_MAX-padded
+    dense_final_start: torch.Tensor,  # scalar int32
+    final_start: torch.Tensor,  # scalar int32
+    *,
+    n_classes: int,
+    n_dense: int,
+    stride: int,
+    win_len: int,
+    capacity: int,
+    n_hits: int,
+):
+    """:func:`verify_windows` over the compressed table (3 gathers a
+    step, the two-range finality): the flagged-window verifier of
+    signature-scale sets whose dense table is not built."""
+    grid_idx, H, active, w0, base, row_len, _ = _window_geometry(
+        chunks, lengths, None, grid_idx, stride, n_hits
+    )
+    cls = _window_classes(byte_class, used_bytes, chunks, base, win_len)
+    state = torch.zeros(H, dtype=torch.int32, device=chunks.device)
+    flagged = torch.zeros(H, dtype=torch.bool, device=chunks.device)
+    for j in range(win_len):
+        pos_j = w0 + j
+        valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+        c = torch.where(valid_j, cls[:, j], 0)
+        state = compressed_step(state, c, dense_flat, meta, exc_target,
+                                n_classes, n_dense)
+        flagged |= compressed_final(
+            state, n_dense, dense_final_start, final_start
+        ) & valid_j
+    return _flagged_cells(grid_idx, H, flagged, capacity)
 
 
 def filter_candidates(

@@ -11,7 +11,8 @@ Bridges variable-length user haystacks and the fixed-shape device kernels in
   that much left context reproduces the exact state sequence of a full
   sequential scan.  Positions inside the halo are owned by the neighboring
   chunk and masked via ``emit_from``.
-* **Expansion** — compacted device match positions are expanded through the
+* **Expansion** — compacted device match positions (or flagged k-gram
+  cells, re-walked through the 1-gram table) are expanded through the
   CSR emit tables into (doc, end_pos, pattern_ids) records, in reference
   scan order: ascending end position, and within one end position the
   state's own (longest) pattern before its failure-chain suffix factors
@@ -199,3 +200,76 @@ def expand_matches(
     ends = auto.emit_start[sts + 1]
     for i in range(n_matches):
         yield int(docs[i]), int(end_pos[i]), auto.emit_pats[starts[i] : ends[i]]
+
+
+def expand_matches_kgram_arrays(
+    auto: CompiledAutomaton,
+    packed: PackedRows,
+    k: int,
+    cell_idx: np.ndarray,  # [capacity] flattened b * (L/k) + cell, ascending
+    prev_state: np.ndarray,  # [capacity] state entering each flagged cell
+    n_cells: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Re-walk flagged k-gram cells to exact per-position matches —
+    vectorized end to end (k table steps over all flagged cells, then one
+    CSR expansion); no per-record Python loop.
+
+    The device only flags cells (k-byte windows) containing at least one
+    final position.  Returns ``(docs, end_pos, pids)`` arrays in reference
+    scan order (cells ascending row-major; positions ascending within a
+    cell)."""
+    if n_cells == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z
+    Lc = packed.row_len // k
+    cells = cell_idx[:n_cells].astype(np.int64)
+    prevs = prev_state[:n_cells].astype(np.int64)
+    # the device compacts in time-major order; restore row-major scan order
+    order = np.argsort(cells, kind="stable")
+    cells = cells[order]
+    prevs = prevs[order]
+    rows = cells // Lc
+    tc = cells % Lc
+    byte_mat = packed.chunks[
+        rows[:, None], tc[:, None] * k + np.arange(k)[None, :]
+    ]  # [n, k]
+    cls_mat = auto.byte_class[byte_mat]
+    table = auto.table
+    fs = auto.final_start
+    row_emit_from = packed.emit_from[rows]
+    row_len = packed.lengths[rows]
+    s = prevs
+    valid_j = np.empty((k, n_cells), dtype=bool)
+    state_j = np.empty((k, n_cells), dtype=np.int64)
+    pos_j = np.empty((k, n_cells), dtype=np.int64)
+    for j in range(k):
+        s = table[s, cls_mat[:, j]].astype(np.int64)
+        pos = tc * k + j
+        valid_j[j] = (s >= fs) & (pos >= row_emit_from) & (pos < row_len)
+        state_j[j] = s
+        pos_j[j] = pos
+    # flatten cell-major then j (transpose): exact scan order
+    sel = valid_j.T.reshape(-1)
+    states_f = state_j.T.reshape(-1)[sel]
+    ends_f = (
+        packed.global_off[rows][:, None] + pos_j.T + 1
+    ).reshape(-1)[sel]
+    docs_f = np.repeat(packed.doc_id[rows].astype(np.int64), k)[sel]
+    rec_of, pids = csr_expand(auto, states_f)
+    return docs_f[rec_of], ends_f[rec_of], pids
+
+
+def expand_matches_kgram(
+    auto: CompiledAutomaton,
+    packed: PackedRows,
+    k: int,
+    cell_idx: np.ndarray,
+    prev_state: np.ndarray,
+    n_cells: int,
+) -> Iterator[Tuple[int, int, np.ndarray]]:
+    """Iterator facade over :func:`expand_matches_kgram_arrays`."""
+    docs, ends, pids = expand_matches_kgram_arrays(
+        auto, packed, k, cell_idx, prev_state, n_cells
+    )
+    for i in range(docs.shape[0]):
+        yield int(docs[i]), int(ends[i]), pids[i : i + 1]

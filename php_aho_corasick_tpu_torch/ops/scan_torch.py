@@ -1,8 +1,8 @@
-"""Device scan primitives in PyTorch: byte classification, the dense
-DFA walk and the fixed-capacity compaction every scan ends with.
+"""Device scan primitives in PyTorch: byte classification, the DFA walks
+(dense table, compressed table, k-gram table) and the fixed-capacity
+compaction every scan ends with.
 
-Counterpart of the JAX package's ``ops/scan_jax.py`` (the dense 1-gram
-engine and the pieces the resident-corpus records path runs).  Everything
+Counterpart of the JAX package's ``ops/scan_jax.py``.  Everything
 here is plain tensor code that stays on the tensors' device and never
 synchronises with the host: compaction uses ``torch.nonzero_static``,
 whose output shape is fixed by ``size`` (plain ``torch.nonzero`` has to
@@ -22,7 +22,16 @@ from typing import Tuple
 
 import torch
 
+from ..core.tables import EXC_PACK
+
 INT32_MAX = 2**31 - 1
+INT32_MIN = -(2**31)
+
+#: k-gram entry layout: low bits = end state, bit 30 = "some intermediate
+#: position inside this cell reached a final state" (the host re-walks
+#: flagged cells for exact positions; see models/kgram_dfa.py)
+KGRAM_STATE_MASK = (1 << 30) - 1
+KGRAM_MID_FLAG = 1 << 30
 
 #: compare-select classification is used up to this many distinct bytes
 CLASSIFY_SELECT_LIMIT = 32
@@ -157,10 +166,17 @@ def scan_and_compact(
 def compact_final_states(states, lengths, emit_from, final_start, capacity):
     """Fixed-capacity compaction of final positions from a states matrix
     (shared by the dfa and tile engines)."""
+    return _compact_final(states, states >= final_start, lengths, emit_from,
+                          capacity)
+
+
+def _compact_final(states, final, lengths, emit_from, capacity):
+    """Compact the ``final`` positions of ``states`` inside each row's
+    ``[emit_from, length)`` window: ``(idx, match_state, n_matches)``."""
     B, L = states.shape
     t_idx = torch.arange(L, dtype=torch.int32, device=states.device)
     final = (
-        (states >= final_start)
+        final
         & (t_idx >= emit_from[:, None])
         & (t_idx < lengths[:, None])
     )
@@ -171,3 +187,150 @@ def compact_final_states(states, lengths, emit_from, final_start, capacity):
         idx < INT32_MAX, states[safe // L, safe % L], -1
     )
     return idx, match_state, n_matches
+
+
+def compressed_step(state, cls, dense_flat, meta, exc_target, n_classes,
+                    n_dense):
+    """One transition of the compressed table
+    (``core/tables.CompressedAutomaton``): 3 gathers (meta, exception
+    target, dense fallback row) and no data-dependent control flow.
+    ``meta >= 0``, so ``%`` and ``//`` decode it as the reference's jnp
+    ops do; the dense-row index is taken in int64 (``D * C`` may pass
+    2^31 at signature scale)."""
+    sp = torch.clamp(state - n_dense, min=0).long()
+    m = meta[sp]
+    key = m % EXC_PACK - 1
+    row = torch.where(state < n_dense, state, m // EXC_PACK)
+    fb = dense_flat[row.long() * n_classes + cls]
+    return torch.where((state >= n_dense) & (cls == key), exc_target[sp], fb)
+
+
+def compressed_final(state, n_dense, dense_final_start, final_start):
+    """The compressed numbering's finality: ``[dense nonfinal][dense
+    final][sparse nonfinal][sparse final]``."""
+    return (state >= final_start) | (
+        (state < n_dense) & (state >= dense_final_start)
+    )
+
+
+def scan_states_compressed(
+    dense_flat: torch.Tensor,  # [D*C] int32 dense-bank rows
+    meta: torch.Tensor,  # [S-D] int32 skip * EXC_PACK + exc_class + 1
+    exc_target: torch.Tensor,  # [S-D] int32
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    init_state: torch.Tensor,  # [B] int32
+    n_classes: int,
+    n_dense: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DFA scan over the compressed table, one :func:`compressed_step` a
+    byte column.  Returns ``(states [B, L] int32, last [B])``;
+    ``states`` is a transposed view of the ``[L, B]`` buffer."""
+    cls_t = _classes(chunks, byte_class, used_bytes).t().contiguous()
+    L, B = cls_t.shape
+    states = torch.empty((L, B), dtype=torch.int32, device=cls_t.device)
+    s = init_state.to(torch.int32)
+    for t in range(L):
+        states[t] = compressed_step(s, cls_t[t], dense_flat, meta,
+                                    exc_target, n_classes, n_dense)
+        s = states[t]
+    return states.t(), s
+
+
+def scan_and_compact_compressed(
+    dense_flat: torch.Tensor,
+    meta: torch.Tensor,
+    exc_target: torch.Tensor,
+    byte_class: torch.Tensor,
+    used_bytes: torch.Tensor,
+    chunks: torch.Tensor,  # [B, L] uint8
+    init_state: torch.Tensor,  # [B] int32
+    lengths: torch.Tensor,  # [B] int32
+    emit_from: torch.Tensor,  # [B] int32
+    dense_final_start: torch.Tensor,  # scalar int32
+    final_start: torch.Tensor,  # scalar int32
+    n_classes: int,
+    n_dense: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compressed-table analog of :func:`scan_and_compact`, finality by
+    :func:`compressed_final`."""
+    states, _ = scan_states_compressed(
+        dense_flat, meta, exc_target, byte_class, used_bytes, chunks,
+        init_state, n_classes, n_dense,
+    )
+    carry = carry_states(states, lengths, init_state)
+    final = compressed_final(states, n_dense, dense_final_start, final_start)
+    idx, match_state, n_matches = _compact_final(
+        states, final, lengths, emit_from, capacity
+    )
+    return idx, match_state, n_matches, carry
+
+
+def kgram_decode(entry: torch.Tensor):
+    """``(end_state int32, mid_flag)`` of k-gram table entries: int16
+    tables keep the flag in the sign bit, int32 tables in bit 30."""
+    if entry.dtype == torch.int16:
+        return (entry & 0x7FFF).to(torch.int32), entry < 0
+    return entry & KGRAM_STATE_MASK, (entry & KGRAM_MID_FLAG) != 0
+
+
+def scan_and_compact_kgram(
+    ktable: torch.Tensor,  # [S * C^k] int16/int32 packed entries
+    byte_class: torch.Tensor,  # [256] int32
+    used_bytes: torch.Tensor,  # [U] uint8
+    chunks: torch.Tensor,  # [B, L] uint8, L % k == 0
+    init_state: torch.Tensor,  # [B] int32
+    lengths: torch.Tensor,  # [B] int32
+    emit_from: torch.Tensor,  # [B] int32
+    final_start: torch.Tensor,  # scalar int32
+    n_classes: int,
+    k: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """k-bytes-a-gather scan + cell-level compaction.
+
+    Cell ``j`` of row ``b`` covers positions ``[j*k, (j+1)*k)``.  A cell
+    is flagged when its entry's mid-final flag is set or its end state is
+    final, and it overlaps the row's ``[emit_from, length)`` window.  The
+    walk packs "this cell holds a final position" into the sign bit of
+    the state entering the cell, and compacts in its time-major ``[Lc,
+    B]`` layout; the compacted indices are converted to ``b * Lc + t``
+    (the host re-sorts them, ``ops/matches.expand_matches_kgram_arrays``).
+
+    Returns ``(cell_idx [cap], prev_state [cap], n_cells, carry [B])``,
+    equal to the reference's before the host sort."""
+    B, L = chunks.shape
+    assert L % k == 0, (L, k)
+    n_cells_row = L // k
+    dev = chunks.device
+    cls = _classes(chunks, byte_class, used_bytes)
+    code = cls[:, 0::k]
+    for j in range(1, k):
+        code = code * n_classes + cls[:, j::k]
+    code_t = code.t().contiguous()  # [Lc, B]
+    ck = n_classes**k
+    flag = torch.tensor(INT32_MIN, dtype=torch.int32, device=dev)
+    packed = torch.empty((n_cells_row, B), dtype=torch.int32, device=dev)
+    state = init_state.to(torch.int32)
+    for t in range(n_cells_row):
+        ns, mid = kgram_decode(ktable[state.long() * ck + code_t[t]])
+        packed[t] = torch.where(mid | (ns >= final_start), state | flag,
+                                state)
+        state = ns
+    cell_t = torch.arange(n_cells_row, dtype=torch.int32, device=dev)[:, None]
+    overlaps = (cell_t * k < lengths[None, :]) & (
+        (cell_t + 1) * k > emit_from[None, :]
+    )
+    flagged = ((packed < 0) & overlaps).reshape(-1)
+    idx, n_flagged = blocked_nonzero(flagged, capacity)
+    valid = idx < INT32_MAX
+    safe = torch.clamp(idx, max=B * n_cells_row - 1).long()
+    out_prev = torch.where(
+        valid, packed.reshape(-1)[safe] & KGRAM_STATE_MASK, -1
+    )
+    out_idx = torch.where(
+        valid, (idx % B) * n_cells_row + idx // B, INT32_MAX
+    )
+    return out_idx, out_prev, n_flagged, state

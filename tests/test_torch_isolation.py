@@ -70,6 +70,39 @@ m = port.Matcher([{"value": p}],
                  device="cpu")
 recs = m.match(p * 70000)
 assert m.cascade_model._force_take and len(recs) == 70000
+# the compressed table (finalize's switch, the compressed dfa and the
+# cascade's compressed records walk), the k-gram engine, and the
+# flagged-window verify with the records gate shut
+from php_aho_corasick_tpu_torch.models.cascade import CascadeModel
+from php_aho_corasick_tpu_torch.models.compressed_dfa import CompressedDfaModel
+from php_aho_corasick_tpu_torch.models.kgram_dfa import KgramDfaModel
+pats = sorted({rng.choice(abc, 16).tobytes() for _ in range(40)})
+doc = rng.choice(abc, 5000).tobytes() + pats[3] + b"xyz" + pats[5]
+want = [(5016, 3), (5035, 5)]
+for cfg in (dict(dense_table_max_bytes=64, cascade_min_bytes=1024),
+            dict(dense_table_max_bytes=64, engine="cascade",
+                 bloom_impl="take"),
+            dict(table_format="compressed", engine="dfa")):
+    m = port.Matcher([{"value": p} for p in pats],
+                     port.ScanConfig(chunk_len=512, **cfg), device="cpu")
+    assert m.table_format == "compressed"
+    assert isinstance(m.model, CompressedDfaModel)
+    res = m.match_arrays_many([m.device_corpus([doc])])[0]
+    assert list(zip(res["pos"].tolist(), res["pattern"].tolist())) == want
+m = port.Matcher([{"value": p} for p in pats],
+                 port.ScanConfig(engine="kgram", chunk_len=512),
+                 device="cpu")
+res = m.match_arrays([doc])
+assert isinstance(m.kgram_model, KgramDfaModel) and m.kgram_model.k >= 2
+assert list(zip(res["pos"].tolist(), res["pattern"].tolist())) == want
+CascadeModel.records_ok = property(lambda self: False)
+for cfg in (dict(), dict(verify_kgram_bytes=0),
+            dict(table_format="compressed")):
+    m = port.Matcher([{"value": p} for p in pats],
+                     port.ScanConfig(engine="cascade", chunk_len=512, **cfg),
+                     device="cpu")
+    res = m.match_arrays([doc])
+    assert list(zip(res["pos"].tolist(), res["pattern"].tolist())) == want
 loaded = [n for n in sys.modules
           if n == "jax" or n.startswith("jax.")
           or n == "php_aho_corasick_tpu" or n.startswith("php_aho_corasick_tpu.")]

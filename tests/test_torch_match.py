@@ -183,9 +183,8 @@ def test_engine_route():
     assert m._pick_engine(32 * mb) == "tile"
     assert m._pick_engine(10) == "tile"
     # forced engines
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        port.Matcher(["ab"], port.ScanConfig(engine="kgram"),
-                     device="cpu")._pick_engine(10)
+    assert port.Matcher(["ab"], port.ScanConfig(engine="kgram"),
+                        device="cpu")._pick_engine(10) == "kgram"
     rng = random.Random(32)
     big = sorted({bytes(rng.choice(b"abcdefghij") for _ in range(8))
                   for _ in range(400)})

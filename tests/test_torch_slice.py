@@ -206,25 +206,24 @@ def test_records_chain_on_carried_tables(stage2):
 
 
 def test_unported_modes_raise():
-    """The k-gram engine, the sharded corpus and the compressed table
-    raise naming their ROADMAP items; the take filter
-    (``bloom_impl="take"``), once pinned here as raising, now equals the
-    JAX package's records."""
+    """The sharded corpus raises naming its ROADMAP item.  The modes once
+    pinned here as raising now equal the JAX package's records: the take
+    filter (``bloom_impl="take"``), the k-gram engine and the compressed
+    table (their JAX side jitted: its op-by-op walks cost more than XLA's
+    compile)."""
     pats, docs = _mixed_case(0)
-    m = port.Matcher([{"value": p} for p in pats],
-                     port.ScanConfig(engine="kgram"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        m.match_arrays(docs)
     mj, m = _matchers(pats, bloom_impl="take")
     assert m.cascade_model.bloom_impl() == "take"
     _assert_same(mj.match_arrays(docs), m.match_arrays(docs))
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         m.device_corpus(docs, shard=True)
-    m = port.Matcher([{"value": p} for p in pats],
-                     port.ScanConfig(table_format="compressed"),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        m.finalize()
+    with jax.disable_jit(False):
+        mj, m = _matchers(pats, engine="kgram")
+        assert m._pick_engine(sum(map(len, docs))) == "kgram"
+        _assert_same(mj.match_arrays(docs), m.match_arrays(docs))
+        mj, m = _matchers(pats, table_format="compressed")
+        assert m.table_format == mj.table_format == "compressed"
+        _assert_same(mj.match_arrays(docs), m.match_arrays(docs))
 
 
 def test_alignment_gate_failure_raises():
