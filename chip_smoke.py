@@ -78,7 +78,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the 64 MiB handle, its ``emit_windows_arrays`` equal to the records
    path; (e) ``engine="kgram"`` (k = 4) on phase 5's 32 MiB tile handle,
    timed, equal to the tile and dense engines;
-10. one JSON line of kernel timings, the card's name and power limit, and
+10. serving and streaming on the headline set: (a) ``match_arrays`` over
+   the headline's 128 MiB as 16,384 fresh 8 KiB documents (the cold-corpus
+   pipeline, 8 slices of 16 MiB) timed in turns with the pipeline off and
+   with ``device_corpus`` + ``match_arrays``, and over phase 4's planted
+   documents, equal to its records; (b) ``match_arrays_stream`` over 6
+   batches of ``[handle] * 2`` (headline, planted), each equal to
+   ``match_arrays_many``, timed in turns against 6 sequential calls, its
+   dispatch under ``set_sync_debug_mode("error")``; (c) one stream over the
+   planted 64 MiB in 4 MiB feeds (the prefix re-scan through the cascade),
+   a needle planted across every feed boundary, all found at their global
+   offsets, 8 MiB equal to the host walk; (d) the dense device carry on
+   the tile cell's automaton over 8 MiB in 1 MiB feeds, ``Matcher.match``
+   replaced by a raiser, equal to the host walk; (e) ``iter_matches`` over
+   (c)'s bytes, equal to its records, and ``find_all=False`` stopping after
+   the first segment with a match; (f) ``replace`` and ``replace_stream``
+   (NORMAL and LAZY) over (c)'s bytes, the stream equal to the one-shot
+   call and NORMAL equal to a splice of (c)'s records; (g) ``warmup`` and
+   one ``match_many`` at its shape;
+11. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 1-8, 2^12-2^15-word
@@ -111,6 +129,10 @@ FORCE_TAKE_NEEDLE, FORCE_TAKE_REPS = b"abcdefabcdefabcd", 70000
 # bench_signatures.py --alphabet byte at 1/10 of its needles
 SIG_NEEDLES, SIG_LEN, SIG_MIB, SIG_DOC = 100_000, 16, 64, 1 << 20
 KGRAM_PASSES = 3
+# phase 10: fresh-corpus passes, stream batches, feed sizes, warmup shape
+FRESH_PASSES, STREAM_BATCHES = 3, 6
+STREAM_FEED, CARRY_FEED, CARRY_BYTES = 4 << 20, 1 << 20, 8 << 20
+WARMUP_DOC, WARMUP_DOCS = 1 << 20, 16
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # The four kernels do 32-bit integer work, one instruction per counted
@@ -559,22 +581,31 @@ def host_walk(auto, docs):
     return arr[:, order]
 
 
+def planted_docs(needles, base, seed):
+    """The base documents replicated ``DENSITY_REPS`` times with
+    ``needles`` planted at ``DENSITY`` per byte: the ``[n_docs,
+    DOC_BYTES]`` array and the planted ``(doc, offset, pattern)`` rows."""
+    length = len(needles[0])
+    dens = np.repeat(base[None], DENSITY_REPS, axis=0).reshape(-1, DOC_BYTES)
+    prng = random.Random(seed)
+    planted = []
+    for _ in range(int(DENSITY * dens.size)):
+        di = prng.randrange(dens.shape[0])
+        off = prng.randrange(DOC_BYTES - length)
+        pid = prng.randrange(len(needles))
+        dens[di, off : off + length] = np.frombuffer(needles[pid], np.uint8)
+        planted.append((di, off, pid))
+    return dens, planted
+
+
 def planted_check(m, needles, base, seed, what):
     """Plant ``needles`` at ``DENSITY`` per byte into the base documents
     replicated ``DENSITY_REPS`` times; every intact planted needle must be
     found by ``match_arrays_many``, and the first 8 MiB must equal the
     host walk."""
     length = len(needles[0])
-    dens = np.repeat(base[None], DENSITY_REPS, axis=0).reshape(-1, DOC_BYTES)
-    prng = random.Random(seed)
-    n_plant = int(DENSITY * dens.size)
-    planted = []
-    for _ in range(n_plant):
-        di = prng.randrange(dens.shape[0])
-        off = prng.randrange(DOC_BYTES - length)
-        pid = prng.randrange(len(needles))
-        dens[di, off : off + length] = np.frombuffer(needles[pid], np.uint8)
-        planted.append((di, off, pid))
+    dens, planted = planted_docs(needles, base, seed)
+    n_plant = len(planted)
     hd = m.device_corpus([row.tobytes() for row in dens])
     rd = m.match_arrays_many([hd])[0]
     found = set(zip(rd["doc"].tolist(), rd["pos"].tolist(),
@@ -1759,6 +1790,281 @@ def phase_kgram_path(torch, card, kernels, tile_cell):
     return launched
 
 
+def same_arrays(got, want, what):
+    for key in want:
+        assert np.array_equal(got[key], want[key]), f"{what}: {key}"
+
+
+def stream_records(m, text, feed):
+    """``m.stream()`` fed ``text`` ``feed`` bytes at a time: the records,
+    CUDA-event ms and host-clock ms of the whole stream."""
+    import torch
+
+    def run():
+        with m.stream() as st:
+            return [r for o in range(0, len(text), feed)
+                    for r in st.feed(text[o : o + feed])]
+
+    ms, recs, wall = timed_passes(torch, run, 1)
+    return recs, ms, wall
+
+
+def rec_rows(recs):
+    """``(end, pattern)`` rows of record dicts made from ``{"id": i}``
+    specs."""
+    return np.array([(r["pos"], r["keyIdx"]) for r in recs],
+                    np.int64).reshape(-1, 2)
+
+
+def phase_serving_path(torch, card, kernels, head, tile_cell, base):
+    """Phase 10: the serving and streaming surface.  (a) the fresh-corpus
+    pipeline: ``match_arrays`` over the headline's 128 MiB as 16,384 fresh
+    8 KiB documents (8 slices of 16 MiB), beside the same call with the
+    pipeline off and ``device_corpus`` + ``match_arrays``, and over phase
+    4's planted documents, equal to its records; (b) ``match_arrays_stream``
+    over 6 batches of ``[handle] * 2`` (headline, planted) against 6
+    sequential ``match_arrays_many`` calls, its dispatch sync-checked; (c)
+    a stream over the planted 64 MiB joined, 4 MiB feeds through the
+    cascade's prefix re-scan, a needle planted across every feed boundary;
+    (d) the dense device carry on the tile cell's automaton over 8 MiB in
+    1 MiB feeds, ``Matcher.match`` replaced by a raiser; (e)
+    ``iter_matches`` over (c)'s bytes; (f) ``replace`` and
+    ``replace_stream`` over (c)'s bytes; (g) ``warmup`` and one
+    ``match_many`` at its shape.  Returns the hand kernels' launches of the
+    phase and the fused kernel's largest difference from its plain version
+    at a fresh slice's shape."""
+    import dataclasses
+
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch import stream as stream_mod
+
+    needles, m, h, hd, rd = head
+    cfg = m.config
+    cm = m.cascade_model
+    length = len(needles[0])
+    docs = [row.tobytes() for row in base] * HEADLINE_REPS
+    total = sum(map(len, docs))
+    dens, planted = planted_docs(needles, base, int(DENSITY * 1e9))
+    counts_zeroed(kernels)
+
+    # (a) the fresh-corpus pipeline, off, and the resident handle
+    def fresh():
+        return m.match_arrays(docs)
+
+    want = fresh()
+    assert m.stats.last_engine == "cascade-fresh", m.stats.last_engine
+    n_slices = -(-total // min(cfg.fresh_slice_bytes,
+                               cfg.max_launch_bytes // 2))
+    calls = {  # name: (config, call, the engine it records)
+        "on": (cfg, fresh, "cascade-fresh"),
+        "off": (dataclasses.replace(cfg, fresh_slice_bytes=total), fresh,
+                "arrays"),
+        "handle": (cfg, lambda: m.match_arrays(m.device_corpus(docs)),
+                   "arrays"),
+    }
+    runs = {}
+    for name in ("on", "off", "handle") * 2:
+        m.config, run, engine = calls[name]
+        try:
+            ms, res, wall = timed_passes(torch, run, FRESH_PASSES)
+        finally:
+            m.config = cfg
+        assert m.stats.last_engine == engine, (name, m.stats.last_engine)
+        same_arrays(res, want, f"fresh {name}")
+        runs.setdefault(name, []).append((ms, wall))
+    log(f"fresh corpus: match_arrays over {len(docs)} fresh "
+        f"{DOC_BYTES // 1024} KiB documents ({total / 2**20:.0f} MiB, "
+        f"{n_slices} slices of {cfg.fresh_slice_bytes / 2**20:.0f} MiB), "
+        f"ms a call by CUDA events (host clock) in turns on, off, handle, "
+        f"on, off, handle: "
+        + "; ".join(f"{k} " + ", ".join(f"{a:.3f} ({b:.3f})" for a, b in v)
+                    for k, v in runs.items())
+        + f"; {want['doc'].shape[0]} matches, equal; on {card}")
+    pd = [row.tobytes() for row in dens]
+    res = m.match_arrays(pd)
+    assert m.stats.last_engine == "cascade-fresh"
+    same_arrays(res, rd, "fresh planted")
+    log(f"fresh corpus over phase 4's planted {dens.size / 2**20:.0f} MiB "
+        f"({len(pd)} documents): equal to phase 4's records array for "
+        f"array ({res['doc'].shape[0]} matches)")
+    trace_breakdown(torch, lambda n: [fresh() for _ in range(n)], card,
+                    passes=1, top=10)
+
+    # (b) the cross-batch double buffer against sequential batches
+    for name, hx in (("headline", h), ("planted", hd)):
+        batches = [[hx] * 2 for _ in range(STREAM_BATCHES)]
+        one = m.match_arrays_many(batches[0])
+        real = m._records_batch_dispatch
+        m._records_batch_dispatch = lambda hs, c: assert_no_sync(
+            torch, lambda: real(hs, c))
+        try:
+            got = list(m.match_arrays_stream(batches))
+        finally:
+            del m._records_batch_dispatch
+        assert len(got) == STREAM_BATCHES
+        for b in got:
+            for r, w in zip(b, one):
+                same_arrays(r, w, f"stream of batches, {name}")
+        turns = []
+        for kind in ("sequential", "stream", "stream", "sequential"):
+            run = (lambda: [m.match_arrays_many(b) for b in batches]) \
+                if kind == "sequential" \
+                else (lambda: list(m.match_arrays_stream(batches)))
+            ms, _, wall = timed_passes(torch, run, 1)
+            turns.append(f"{kind} {ms:.3f} ({wall:.3f})")
+        log(f"match_arrays_stream, {STREAM_BATCHES} batches of [{name} "
+            f"handle] * 2, each equal to match_arrays_many "
+            f"({one[0]['doc'].shape[0]} matches a handle), no host sync in "
+            f"its dispatch; ms for all {STREAM_BATCHES} batches by CUDA "
+            f"events (host clock), in turns: {'; '.join(turns)}; on {card}")
+
+    # (c) one stream over the planted corpus, a needle across each boundary
+    joined = dens.reshape(-1).copy()
+    prng = random.Random(29)
+    boundary = []
+    for b in range(STREAM_FEED, joined.size, STREAM_FEED):
+        o = b - prng.randrange(1, length)
+        pid = prng.randrange(len(needles))
+        joined[o : o + length] = np.frombuffer(needles[pid], np.uint8)
+        boundary.append((o + length, pid))
+    text = joined.tobytes()
+    expect = [(d * DOC_BYTES + o + length, p) for d, o, p in planted]
+    expect = [(e, p) for e, p in expect
+              if text[e - length : e] == needles[p]] + boundary
+    recs, ms, wall = stream_records(m, text, STREAM_FEED)
+    assert m.stats.last_engine == "cascade", m.stats.last_engine
+    rows = rec_rows(recs)
+    found = set(map(tuple, rows.tolist()))
+    missing = [x for x in expect if x not in found]
+    assert not missing, f"stream: planted needles not found: {missing[:5]}"
+    ref = host_walk_segments(m.automaton, joined[None, :8 << 20])
+    sel = rows[:, 0] <= 8 << 20
+    assert np.array_equal(rows[sel].T, ref[1:]), "stream: 8 MiB != host walk"
+    n_feeds = -(-len(text) // STREAM_FEED)
+    log(f"stream (prefix re-scan through the cascade): {len(text) / 2**20:.0f}"
+        f" MiB in {n_feeds} feeds of {STREAM_FEED >> 20} MiB, {len(recs)} "
+        f"records, {len(expect)} planted ({len(boundary)} across feed "
+        f"boundaries) all found at their global offsets, 8 MiB equal to the "
+        f"host walk; {ms:.3f} ms by CUDA events ({wall:.3f} ms host clock), "
+        f"{ms / n_feeds:.3f} ms a feed; on {card}")
+
+    # (d) the dense device carry on the tile cell's automaton
+    specs = tile_cell[0]
+    mt = Matcher(specs, ScanConfig(backend="device",
+                                   match_capacity=TILE_CAPACITY),
+                 device=DEVICE)
+    assert mt._pick_engine(CARRY_FEED) == "tile"
+
+    def raiser(*args, **kw):
+        raise AssertionError("prefix path engaged on a device-carry feed")
+
+    mt.match = raiser
+    carried = np.tile(base.reshape(-1), -(-CARRY_BYTES // base.size))
+    carried = carried[:CARRY_BYTES]
+    recs_t, ms, wall = stream_records(mt, carried.tobytes(), CARRY_FEED)
+    ref = host_walk_segments(mt.automaton, carried[None])
+    assert np.array_equal(rec_rows(recs_t).T, ref[1:]), \
+        "device carry != host walk"
+    n_feeds = CARRY_BYTES // CARRY_FEED
+    log(f"stream (dense device carry, tile cell's automaton): "
+        f"{CARRY_BYTES >> 20} MiB in {n_feeds} feeds of "
+        f"{CARRY_FEED >> 20} MiB, {len(recs_t)} records equal to the host "
+        f"walk; {ms / n_feeds:.3f} ms a feed by CUDA events "
+        f"({wall / n_feeds:.3f} ms host clock); on {card}")
+
+    # (e) iter_matches over (c)'s bytes
+    seg = 1 << 20
+    w0 = time.perf_counter()
+    assert list(m.iter_matches(text)) == recs, "iter_matches != stream"
+    it_ms = (time.perf_counter() - w0) * 1e3
+    calls = []
+    real_feed = stream_mod.StreamScanner.feed
+
+    def spy(self, data):
+        calls.append(len(data))
+        return real_feed(self, data)
+
+    stream_mod.StreamScanner.feed = spy
+    try:
+        first = list(m.iter_matches(text, find_all=False))
+    finally:
+        stream_mod.StreamScanner.feed = real_feed
+    first_pos = recs[0]["pos"]
+    assert first == [r for r in recs if r["pos"] == first_pos]
+    assert len(calls) == -(-first_pos // seg), (len(calls), first_pos)
+    log(f"iter_matches over (c)'s bytes ({seg >> 20} MiB segments): equal "
+        f"to the stream's records, {it_ms:.3f} ms host clock; find_all=False"
+        f" stopped after {len(calls)} feeds (first match ends at "
+        f"{first_pos})")
+
+    # (f) replace: one-shot, streamed NORMAL and LAZY, and a splice of (c)
+    rmap = {needles[p]: b"<%d>" % p for p in range(0, len(needles), 3)}
+    out, cur, n_rep = bytearray(), 0, 0
+    for end, pid in rows.tolist():  # 16-byte needles: no nested matches
+        if needles[pid] in rmap:
+            if end - length > cur:
+                out += text[cur : end - length]
+            out += rmap[needles[pid]]
+            cur = max(cur, end)
+            n_rep += 1
+    out += text[cur:]
+    times = []
+    for mode in ("normal", "lazy"):
+        w0 = time.perf_counter()
+        one = m.replace(text, rmap, mode)
+        w1 = time.perf_counter()
+        rs = m.replace_stream(rmap, mode)
+        got = bytearray()
+        for o in range(0, len(text), STREAM_FEED):
+            got += rs.feed(text[o : o + STREAM_FEED])
+        got += rs.flush()
+        w2 = time.perf_counter()
+        assert bytes(got) == one, f"replace_stream {mode} != replace"
+        if mode == "normal":
+            assert one == bytes(out), "replace != splice of the records"
+        times.append(f"{mode} one-shot {(w1 - w0) * 1e3:.3f}, stream "
+                     f"{(w2 - w1) * 1e3:.3f}")
+    assert n_rep >= len(expect) // 5, n_rep  # a third of the needles
+    log(f"replace over (c)'s bytes, {len(rmap)} needles with replacements, "
+        f"{n_rep} records replaced: replace_stream ({STREAM_FEED >> 20} MiB "
+        f"feeds) equals replace in both modes, NORMAL equals a splice of "
+        f"(c)'s records; ms host clock: {'; '.join(times)}; on {card}")
+
+    # (g) warmup, then one match_many at its shape
+    w0 = time.perf_counter()
+    m.warmup(WARMUP_DOC, WARMUP_DOCS)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - w0) * 1e3
+    wdocs = [text[i * WARMUP_DOC : (i + 1) * WARMUP_DOC]
+             for i in range(WARMUP_DOCS)]
+    ms, res, wall = timed_passes(torch, lambda: m.match_many(wdocs), 1)
+    for i, got in enumerate(res):
+        lo, hi = i * WARMUP_DOC, (i + 1) * WARMUP_DOC
+        want_i = [(r["pos"] - lo, r["keyIdx"]) for r in recs
+                  if r["start_postion"] >= lo and r["pos"] <= hi]
+        assert rec_rows(got).tolist() == [list(x) for x in want_i], i
+    log(f"warmup({WARMUP_DOC}, {WARMUP_DOCS}): {warm_ms:.3f} ms host clock; "
+        f"then match_many over {WARMUP_DOCS} documents of "
+        f"{WARMUP_DOC >> 20} MiB: {ms:.3f} ms by CUDA events ({wall:.3f} ms "
+        f"host clock), engine {m.stats.last_engine}, records equal to (c)'s; "
+        f"on {card}")
+    launched = launched_of(kernels)
+    assert launched[0] > 0, f"fused kernel launched {launched[0]} times"
+    log(f"phase 10 hand kernel launches (fused, rows, bloom_hit, tile): "
+        f"{launched}")
+
+    # the fused kernel at a fresh slice's shape, against its plain version
+    fse = kernels[0]
+    hs = m.device_corpus(docs[: cfg.fresh_slice_bytes // DOC_BYTES])
+    args, kw = extract_args(cm, hs)
+    got, want = fse(*args, **kw), plain(args, kw)
+    torch.cuda.synchronize()
+    err = compare(got, want, "fused, a fresh slice")
+    log(f"fused_sampled_extract at a fresh slice's shape (rows "
+        f"{tuple(hs.chunks_d.shape)}): bit-equal to its plain version")
+    return launched, err
+
+
 def main(argv=None):
     import argparse
 
@@ -1939,7 +2245,17 @@ def main(argv=None):
     for k, n in zip((rows_kernel, hit_kernel, tile_kernel), extra[1:]):
         k["launches"] += n
 
-    # 10. timings and the last line
+    # 10. serving and streaming: the fresh-corpus pipeline, the cross-batch
+    # double buffer, the stream's two carries, iter_matches, replace, warmup
+    serve_launched, serve_err = phase_serving_path(
+        torch, card, kernels, (needles, m, h, hd, rd), tile_cell, base)
+    launches += serve_launched[0]
+    for k, n in zip((rows_kernel, hit_kernel, tile_kernel),
+                    serve_launched[1:]):
+        k["launches"] += n
+    err2 = max(err2, serve_err)
+
+    # 11. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",

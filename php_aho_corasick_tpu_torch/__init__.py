@@ -8,6 +8,8 @@ device-resident corpus.  Large scans run the sampled gram-filter cascade
 slot compaction and an exact DFA window walk on the device); small
 automata run the tile DFA kernel (``csrc/scan_states_tile.cu``); the rest
 runs the dense DFA walk.  Match records are expanded on the host.
+Chunked input goes through ``Matcher.stream`` (matches across feed
+boundaries), ``Matcher.iter_matches`` and ``Matcher.replace_stream``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -5,7 +5,12 @@ far: the build lifecycle (``add_patterns`` / ``finalize`` / ``close``),
 the reference-schema match records (:meth:`Matcher.match`,
 :meth:`Matcher.match_many`), :meth:`Matcher.device_corpus` and the
 columnar scans (:meth:`Matcher.match_arrays`,
-:meth:`Matcher.match_arrays_many`).  Columnar results are ``doc``,
+:meth:`Matcher.match_arrays_many`, the cross-batch double buffer
+:meth:`Matcher.match_arrays_stream`, and the cold-corpus pipeline that
+``match_arrays`` takes over a fresh document list), the chunked stream
+(:meth:`Matcher.stream`, :meth:`Matcher.iter_matches`) and
+search-and-replace (:meth:`Matcher.replace`,
+:meth:`Matcher.replace_stream`).  Columnar results are ``doc``,
 ``pos`` (exclusive byte end), ``start_postion`` (sic — the reference
 API's field name) and ``pattern`` (index into the accepted patterns), in
 reference emission order.
@@ -30,7 +35,7 @@ falls back to another engine silently.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -179,6 +184,7 @@ class Matcher:
         self._cascade = _UNSET
         self._tile = _UNSET
         self._kmodel = None
+        self._fetch_stream = None  # CUDA side stream of the records fetch
         self.stats = ScanStats()
         self._finalized = False
         self._valid = True
@@ -262,6 +268,14 @@ class Matcher:
     # ------------------------------------------------------------ query
 
     @property
+    def finalized(self) -> bool:
+        return self._finalized
+
+    @property
+    def n_patterns(self) -> int:
+        return len(self._patterns)
+
+    @property
     def automaton(self):
         """The frozen compiled automaton (:class:`CompiledAutomaton`, or
         :class:`~.core.tables.CompressedAutomaton` for byte-dense
@@ -279,6 +293,13 @@ class Matcher:
 
     def is_valid(self) -> bool:
         return self._valid
+
+    def describe(self) -> str:
+        """Human-readable automaton summary (analog of ``ac_trie_display``,
+        ``src/multifast/ahocorasick.c:304-307``)."""
+        if not self._finalized:
+            return f"Matcher(open, {len(self._patterns)} patterns)"
+        return self.automaton.describe()
 
     @property
     def cascade_model(self):
@@ -445,7 +466,7 @@ class Matcher:
             # oversized corpora go in several launches (documents are
             # independent, so this is exact)
             engine = "-"
-            for g in self._launch_groups(docs):
+            for g in self._launch_groups(docs, self.config.max_launch_bytes):
                 engine, docs_a, ends_a, pids_a = self._scan_handle_arrays(
                     self._upload([docs[i] for i in g])
                 )
@@ -484,15 +505,21 @@ class Matcher:
 
     def _upload(self, docs: List[bytes]) -> DeviceCorpus:
         """Pack ``docs`` into halo-overlapped rows and copy them to the
-        device."""
+        device.  On CUDA the rows go through pinned host memory and the
+        copies are enqueued without waiting, so the host returns while
+        earlier work (a previous slice's chain) still runs."""
         halo = max(self._auto.max_len - 1, 0)
         packed = pack_documents(
             docs, self._pack_chunk_len(), halo, self.config.batch_pad,
             row_align=self._row_align(),
         )
+        pin = self.device.type == "cuda"
 
         def put(x):
-            return torch.from_numpy(x).to(self.device)
+            t = torch.from_numpy(x)
+            return (t.pin_memory() if pin else t).to(
+                self.device, non_blocking=True
+            )
 
         return DeviceCorpus(
             packed, put(packed.chunks), put(packed.lengths),
@@ -569,10 +596,10 @@ class Matcher:
             )
         return (engine,) + tuple(arrays)
 
-    def _launch_groups(self, docs: List[bytes]) -> List[List[int]]:
-        """Document indices cut into groups of at most
-        ``max_launch_bytes`` (a larger document is a group of its own)."""
-        limit = self.config.max_launch_bytes
+    @staticmethod
+    def _launch_groups(docs: List[bytes], limit: int) -> List[List[int]]:
+        """Document indices cut into consecutive groups of at most
+        ``limit`` bytes (a larger document is a group of its own)."""
         groups: List[List[int]] = []
         group: List[int] = []
         group_bytes = 0
@@ -607,10 +634,14 @@ class Matcher:
                 dc.total_bytes, docs_a, ends_a, pids_a, find_all
             )
         docs = [_as_bytes(h) for h in haystacks]
+        fresh = self._match_arrays_fresh_pipelined(docs, find_all)
+        if fresh is not None:
+            return fresh
         parts = []
         if self._auto.n_patterns > 0:
+            limit = self.config.max_launch_bytes
             parts = [self._group_arrays(docs, g)
-                     for g in self._launch_groups(docs)]
+                     for g in self._launch_groups(docs, limit)]
         if parts:
             docs_a, ends_a, pids_a = (
                 np.concatenate([p[k] for p in parts]) for k in range(3)
@@ -716,9 +747,110 @@ class Matcher:
             *self._records_batch_dispatch(handles, cm), find_all
         )
 
+    def _match_arrays_fresh_pipelined(self, docs, find_all):
+        """Cold-corpus double buffering: slice a fresh document list into
+        ``fresh_slice_bytes`` pieces and drive them through
+        :meth:`match_arrays_stream`, so slice ``k+1``'s host packing and
+        host->device upload overlap slice ``k``'s device scan (and slice
+        ``k-1``'s host emission).  Returns the merged columnar dict, or
+        None when the pipeline does not apply (small input, no
+        records-path plan: those keep the grouped path)."""
+        cm = self.cascade_model
+        slice_bytes = min(
+            self.config.fresh_slice_bytes,
+            self.config.max_launch_bytes // 2,
+        )
+        total = sum(map(len, docs))
+        # The reference also keeps the grouped path where ``auto_shard`` is
+        # set and several devices are visible; a matcher here serves one
+        # device until the sharded corpus (ROADMAP queue 1 item 10) exists.
+        if (
+            cm is None
+            or cm.plan.mode != "sampled"
+            or not cm.records_ok
+            or len(docs) < 2
+            or total < 2 * slice_bytes
+            or max(map(len, docs)) > slice_bytes
+            or self._pick_engine(total) != "cascade"
+        ):
+            return None
+
+        slices = [(g[0], g[-1] + 1)  # (doc_lo, doc_hi)
+                  for g in self._launch_groups(docs, slice_bytes)]
+
+        def batches():
+            for s_lo, s_hi in slices:
+                # pack + upload run here, i.e. while the PREVIOUS slice's
+                # chains execute on the device (enqueued, not waited for)
+                yield [self.device_corpus(docs[s_lo:s_hi])]
+
+        docs_l, ends_l, pids_l = [], [], []
+        for (s_lo, _), res in zip(
+            slices, self.match_arrays_stream(batches(), find_all)
+        ):
+            r = res[0]
+            docs_l.append(r["doc"] + s_lo)  # globalize doc indices
+            ends_l.append(r["pos"])
+            pids_l.append(r["pattern"])
+        docs_a = np.concatenate(docs_l)
+        ends_a = np.concatenate(ends_l)
+        pids_a = np.concatenate(pids_l)
+        starts_a = ends_a - self._auto.pat_lens[pids_a]
+        # bytes/matches were already counted per slice by _arrays_result;
+        # only mark which path served the call (a second record here
+        # would double-count the whole corpus)
+        self.stats.last_engine = "cascade-fresh"
+        return {
+            "doc": docs_a,
+            "pos": ends_a,
+            "start_postion": starts_a,  # sic: reference API typo
+            "pattern": pids_a,
+        }
+
+    def match_arrays_stream(self, handle_batches, find_all: bool = True):
+        """Generator over batches of resident handles: yields one
+        :meth:`match_arrays_many`-style result list per batch, with batch
+        ``k+1``'s device chains enqueued BEFORE batch ``k``'s records are
+        fetched and expanded on the host, so the device computes the next
+        batch while the host emits the previous one.  Results equal
+        :meth:`match_arrays_many` called per batch; a batch off the
+        records path goes through it, in order."""
+        self._check_open()
+        cm = self.cascade_model
+        prev = None
+        for batch in handle_batches:
+            batch = list(batch)
+            fast = (
+                batch
+                and cm is not None
+                and cm.plan.mode == "sampled"
+                and cm.records_ok
+                and all(
+                    self._pick_engine(h.total_bytes) == "cascade"
+                    for h in batch
+                )
+            )
+            if not fast:
+                if prev is not None:
+                    yield self._records_batch_finish(*prev, find_all)
+                    prev = None
+                yield self.match_arrays_many(batch, find_all)
+                continue
+            for h in batch:
+                self._check_handle(h)
+            cur = self._records_batch_dispatch(batch, cm)
+            if prev is not None:
+                yield self._records_batch_finish(*prev, find_all)
+            prev = cur
+        if prev is not None:
+            yield self._records_batch_finish(*prev, find_all)
+
     def _records_batch_dispatch(self, handles, cm):
         """Enqueue the speculative records chains for a batch — device
-        work only, no host fetch."""
+        work only, no host fetch.  On CUDA the batch's occupancy counts
+        are then copied into pinned host memory without waiting, and an
+        event marks the end of this batch's work: its finish waits for
+        that event alone, not for batches enqueued after it."""
         cap_a = max(cm._cap_hits, 256)
         cap_r = max(cm._cap_flagged, 256)
         outs = [
@@ -728,22 +860,28 @@ class Matcher:
             )
             for h in handles
         ]
-        return handles, cm, outs, cap_a, cap_r
+        counts = torch.stack([s for o in outs for s in o[2:5]])
+        ready = None
+        if counts.is_cuda:
+            host = torch.empty(counts.shape, dtype=counts.dtype,
+                               pin_memory=True)
+            counts = host.copy_(counts, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return handles, cm, outs, cap_a, cap_r, counts, ready
 
     def _records_batch_finish(self, handles, cm, outs, cap_a, cap_r,
-                              find_all):
-        counts = (
-            torch.stack([s for o in outs for s in o[2:5]])
-            .reshape(len(outs), 3)
-            .tolist()
-        )
+                              counts, ready, find_all):
+        if ready is not None:
+            ready.synchronize()
+        counts = counts.reshape(len(outs), 3).tolist()
         # one concatenated fetch for every in-capacity handle's records
         pieces = []
         for (rc, rp, _, _, _), (n, nr, nc) in zip(outs, counts):
             if n <= cap_a and nr <= cap_r and nc <= cm._cap_coarse and nr > 0:
                 pieces.append(rc[:nr])
                 pieces.append(rp[:nr])
-        rec_flat = torch.cat(pieces).cpu().numpy() if pieces else None
+        rec_flat = self._fetch_after(pieces, ready) if pieces else None
         off = 0
         results = []
         for h, (n, nr, nc) in zip(handles, counts):
@@ -765,6 +903,27 @@ class Matcher:
                 self._arrays_result(h.total_bytes, *arrays, find_all=find_all)
             )
         return results
+
+    def _fetch_after(self, pieces, ready) -> np.ndarray:
+        """``torch.cat(pieces)`` on the host.  On CUDA the copy runs on a
+        side stream that waits for ``ready`` (the end of the pieces'
+        batch) alone, so work enqueued on the current stream after that
+        batch (the next batch's chains) does not hold the fetch up."""
+        if ready is None:
+            return torch.cat(pieces).numpy()
+        if self._fetch_stream is None:
+            self._fetch_stream = torch.cuda.Stream(device=self.device)
+        side = self._fetch_stream
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            for p in pieces:
+                p.record_stream(side)
+            flat = torch.cat(pieces)
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            done = side.record_event()
+        done.synchronize()
+        return host.numpy()
 
     def _arrays_result(self, n_bytes, docs_a, ends_a, pids_a, find_all) -> dict:
         if not find_all and docs_a.shape[0]:
@@ -830,6 +989,92 @@ class Matcher:
                 protos.append((tail, len(p.value), p.value_orig))
             self._protos = protos
         return self._protos
+
+    # ------------------------------------------------------------ streaming
+
+    def stream(self):
+        """Open a :class:`~php_aho_corasick_tpu_torch.stream.StreamScanner`
+        — the ``keep=1`` chunk-continuation mode
+        (``ahocorasick.c:191-194``): matches spanning feed boundaries ARE
+        found, positions are global stream offsets."""
+        from .stream import StreamScanner
+
+        if not self._valid:
+            warn("stream on a closed matcher")
+            raise StateError("matcher is closed")
+        return StreamScanner(self)
+
+    # ------------------------------------------------------------ replace
+
+    def replace(self, text, replacements, mode: str = "normal"):
+        """One-shot search-and-replace (NORMAL/LAZY nominee semantics of
+        the reference's MultiFast replace engine; see replace.py)."""
+        from . import replace as _replace
+
+        if not self._valid:
+            warn("replace on a closed matcher")
+            raise StateError("matcher is closed")
+        return _replace.replace(self, text, replacements, mode)
+
+    def replace_stream(self, replacements, mode: str = "normal"):
+        """Streaming replace over chunked input; returns a
+        :class:`~php_aho_corasick_tpu_torch.replace.ReplaceStream`."""
+        from .replace import ReplaceStream
+
+        if not self._valid:
+            warn("replace_stream on a closed matcher")
+            raise StateError("matcher is closed")
+        return ReplaceStream(self, replacements, mode)
+
+    def warmup(self, doc_bytes: int = 0, n_docs: int = 1) -> None:
+        """One device scan of ``n_docs`` documents of ``doc_bytes`` bytes
+        (default ``chunk_len``), so the hand kernels are built and the
+        device holds buffers of that shape before serving starts."""
+        if doc_bytes <= 0:
+            doc_bytes = self.config.chunk_len
+        dummy = [b"\xff" * doc_bytes] * n_docs
+        self.match_many(dummy, backend="device")
+
+    def iter_matches(
+        self,
+        haystack: Haystack,
+        find_all: bool = True,
+        segment_bytes: int = 1 << 20,
+    ) -> Iterator[dict]:
+        """Pull-style match iterator — the reference's
+        ``ac_trie_settext``/``ac_trie_findnext`` mode
+        (``src/multifast/ahocorasick.c:253-281``, unused by its own PHP
+        layer).  Incremental: the haystack is consumed one
+        ``segment_bytes`` slice at a time through the streaming DFA-state
+        carry (:meth:`stream`), so segment ``k+1`` is never scanned until
+        the consumer exhausts segment ``k``'s matches.  Record schema and
+        order match :meth:`match`.
+
+        With ``find_all=False``, yields only the first end-position's
+        match group, then stops scanning (the callback-return abort,
+        ``php_ahocorasick.c:588``)."""
+        # validity check at CALL time (not first iteration): match() and
+        # stream() raise immediately on a closed matcher, so this must
+        # too, hence the non-generator wrapper returning an inner generator
+        if not self._valid:
+            warn("match on a closed matcher")
+            raise StateError("matcher is closed")
+        data = _as_bytes(haystack)
+        seg = max(1, int(segment_bytes))
+
+        def gen() -> Iterator[dict]:
+            with self.stream() as st:
+                for off in range(0, len(data), seg):
+                    recs = st.feed(data[off : off + seg])
+                    if not find_all and recs:
+                        first_pos = recs[0]["pos"]
+                        for r in recs:
+                            if r["pos"] == first_pos:
+                                yield r
+                        return
+                    yield from recs
+
+        return gen()
 
     # ------------------------------------------------------------ teardown
 

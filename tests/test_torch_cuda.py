@@ -419,3 +419,127 @@ def test_force_take_on_card(cuda):
     assert len(recs) == 70000
     assert recs[0]["pos"] == 16 and recs[-1]["pos"] == len(text)
     assert m.match(text) == recs
+
+
+def _serving_case(n_docs, seed=5):
+    """A cascade matcher on the card (300 needles x 16 bytes over
+    ``abcdef``) and ``n_docs`` 8 KiB documents with needles planted."""
+    rng = random.Random(seed)
+    needles = sorted({bytes(rng.choice(b"abcdef") for _ in range(16))
+                      for _ in range(300)})
+    docs = [bytearray(rng.choice(b"abcdef") for _ in range(8192))
+            for _ in range(n_docs)]
+    for d in docs:
+        for _ in range(3):
+            o = rng.randrange(8192 - 16)
+            d[o : o + 16] = needles[rng.randrange(len(needles))]
+    return [{"id": i, "value": p} for i, p in enumerate(needles)], [
+        bytes(d) for d in docs]
+
+
+SLEEP_CYCLES = int(1e8)  # ~50 ms of the card's clock
+
+
+def _sleepy_chains(monkeypatch):
+    """Make every records chain end in ~50 ms of device sleep, then an
+    event; returns the list the events go to, one a chain."""
+    from php_aho_corasick_tpu_torch.models.cascade import CascadeModel
+
+    real = CascadeModel.launch_device_records
+    events = []
+
+    def slow(self, *args, **kw):
+        out = real(self, *args, **kw)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev = torch.cuda.Event()
+        ev.record()
+        events.append(ev)
+        return out
+
+    monkeypatch.setattr(CascadeModel, "launch_device_records", slow)
+    return events
+
+
+def _assert_arrays_equal(got, want):
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+@pytest.mark.cuda
+def test_match_arrays_stream_finish_waits_for_its_batch_only(cuda,
+                                                             monkeypatch):
+    """Finishing batch k returns while batch k+1's chain (dispatched before
+    it) still runs: the records fetch waits for batch k's event alone."""
+    specs, docs = _serving_case(40)
+    m = port.Matcher(specs, port.ScanConfig(engine="cascade",
+                                            chunk_len=4096), device=cuda)
+    hs = [m.device_corpus(docs[i : i + 10]) for i in range(0, 40, 10)]
+    batches = [[h] for h in hs]
+    want = [m.match_arrays_many(b) for b in batches]
+    events = _sleepy_chains(monkeypatch)
+    gen = m.match_arrays_stream(iter(batches))
+    got = []
+    for k in range(len(batches)):
+        got.append(next(gen))
+        if k + 1 < len(batches):
+            assert len(events) == k + 2
+            assert not events[k + 1].query(), f"batch {k} waited for {k + 1}"
+    assert list(gen) == []
+    for g, w in zip(got, want):
+        _assert_arrays_equal(g[0], w[0])
+    assert sum(w[0]["doc"].shape[0] for w in want) >= 100
+
+
+@pytest.mark.cuda
+def test_fresh_pipeline_upload_does_not_wait_for_previous_chain(cuda,
+                                                               monkeypatch):
+    """In the fresh-corpus pipeline, ``device_corpus`` of slice k+1 returns
+    while slice k's chain still runs, and the merged result equals one
+    ``match_arrays_many`` over the whole corpus."""
+    specs, docs = _serving_case(128)
+    m = port.Matcher(specs, port.ScanConfig(
+        engine="cascade", chunk_len=4096, fresh_slice_bytes=256 * 1024),
+        device=cuda)
+    want = m.match_arrays_many([m.device_corpus(docs)])[0]
+    events = _sleepy_chains(monkeypatch)
+    real_dc = m.device_corpus
+    seen = []
+
+    def spy(slice_docs):
+        h = real_dc(slice_docs)
+        seen.append((len(events), events[-1].query() if events else None))
+        return h
+
+    monkeypatch.setattr(m, "device_corpus", spy)
+    got = m.match_arrays(docs)
+    assert m.stats.last_engine == "cascade-fresh"
+    assert [n for n, _ in seen] == [0, 1, 2, 3]
+    assert [q for _, q in seen[1:]] == [False] * 3, seen
+    _assert_arrays_equal(got, want)
+    assert want["doc"].shape[0] >= 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "cascade"])
+def test_stream_and_replace_card_equal_cpu(cuda, engine):
+    """The stream (the dense device carry under ``auto``, the prefix
+    re-scan through the cascade under ``engine="cascade"``), iter_matches
+    and replace_stream on the card equal the same calls on the CPU."""
+    specs, docs = _serving_case(8)
+    text = b"".join(docs)
+    rmap = {specs[i]["value"]: b"<%d>" % i for i in range(0, 300, 3)}
+    res = []
+    for device in (cuda, "cpu"):
+        m = port.Matcher(specs, port.ScanConfig(engine=engine,
+                                                chunk_len=4096), device=device)
+        with m.stream() as st:
+            recs = [r for o in range(0, len(text), 5000)
+                    for r in st.feed(text[o : o + 5000])]
+        assert list(m.iter_matches(text, segment_bytes=7000)) == recs
+        rs = m.replace_stream(rmap)
+        out = b"".join(rs.feed(text[o : o + 6000])
+                       for o in range(0, len(text), 6000)) + rs.flush()
+        assert out == m.replace(text, rmap)
+        res.append((recs, out))
+    assert res[0] == res[1]
+    assert len(res[0][0]) >= 24

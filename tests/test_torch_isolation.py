@@ -17,6 +17,10 @@ _PROBE = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["php_aho_corasick_tpu"] = None
+import torch
+# one intra-op thread: the probe's many small ops then keep their speed
+# when the other test workers load every core
+torch.set_num_threads(1)
 import php_aho_corasick_tpu_torch as port
 
 pats = [b"abcdefabcdef", b"cdefabcdefab", b"xy"]
@@ -29,6 +33,29 @@ got = sorted(zip(res["doc"].tolist(), res["pos"].tolist(),
                  res["pattern"].tolist()))
 want = [(0, 612, 0), (0, 664, 2)]
 assert got == want, got
+# the stream (device carry, then the cascade's prefix path), iter_matches,
+# replace, the cross-batch double buffer and the fresh-corpus pipeline
+for cfg in (dict(), dict(engine="cascade")):
+    ms = port.Matcher([{"value": p} for p in pats],
+                      port.ScanConfig(backend="device", chunk_len=256, **cfg),
+                      device="cpu")
+    with ms.stream() as st:  # the first needle spans the two feeds
+        recs = st.feed(doc[:610]) + st.feed(doc[610:])
+    assert [(r["pos"], r["value"]) for r in recs] == [
+        (612, pats[0]), (664, b"xy")], recs
+    assert list(ms.iter_matches(doc, segment_bytes=610)) == recs
+    out = ms.replace(doc, {b"xy": b"Z"})
+    rs = ms.replace_stream({b"xy": b"Z"}, mode="lazy")
+    assert rs.feed(doc[:650]) + rs.feed(doc[650:]) + rs.flush() == out
+    assert out == doc.replace(b"xy", b"Z")
+ms = port.Matcher([{"value": p} for p in pats],
+                  port.ScanConfig(engine="cascade", chunk_len=256,
+                                  fresh_slice_bytes=2048), device="cpu")
+hs = ms.device_corpus([doc, doc[::-1]])
+assert len(list(ms.match_arrays_stream([[hs], [hs, hs]]))) == 2
+res = ms.match_arrays([doc, doc[::-1]] * 3)
+assert ms.stats.last_engine == "cascade-fresh", ms.stats.last_engine
+assert res["pos"].tolist() == [612, 664] * 3, res
 # the PHP-parity surface through the tile engine
 t = port.ahocorasick_init([{"key": "ab", "value": "alfa"}, {"value": "lfa"}],
                           device="cpu")
