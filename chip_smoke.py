@@ -96,7 +96,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (NORMAL and LAZY) over (c)'s bytes, the stream equal to the one-shot
    call and NORMAL equal to a splice of (c)'s records; (g) ``warmup`` and
    one ``match_many`` at its shape;
-11. one JSON line of kernel timings, the card's name and power limit, and
+11. the data mesh, 4 shards of the card (``parallel.mesh.local_shards``):
+   (a) the headline's 128 MiB through ``device_corpus(shard=True)`` and
+   ``match_arrays_many([handle] * 12)``, records equal to the unsharded
+   handle's, per-shard record counts equal to a host split of them, ms a
+   pass by CUDA events in turns with the unsharded handle, launches a pass
+   by trace, no host sync in the sharded dispatch; (b) phase 4's planted
+   64 MiB sharded, every planted needle found, records equal to phase 4's,
+   per-shard record counts equal to a host split of them (the headline
+   holds no match);
+   (c) ``match_arrays`` sharded through the tile, dfa, k-gram, anchored,
+   rows, take-grouped, headline-compressed and signature-byte cells, each
+   equal to its unsharded records, the compressed table held once on the
+   card; (d) ``parallel.dryrun.dryrun_multichip(4, "cuda")``; (e) two
+   processes on the card (``torch.distributed`` with gloo, both ranks on
+   ``cuda:0``, the script run again with ``--worker``) over 16 MiB with
+   needles planted at 1e-5, both equal to the single-process records.  Each kernel's first launch of the phase, at a
+   shard's shape, is held against its plain version;
+12. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 1-8, 2^12-2^15-word
@@ -581,12 +598,14 @@ def host_walk(auto, docs):
     return arr[:, order]
 
 
-def planted_docs(needles, base, seed):
-    """The base documents replicated ``DENSITY_REPS`` times with
-    ``needles`` planted at ``DENSITY`` per byte: the ``[n_docs,
-    DOC_BYTES]`` array and the planted ``(doc, offset, pattern)`` rows."""
+def planted_docs(needles, base, seed, reps=None):
+    """The base documents replicated ``reps`` (default ``DENSITY_REPS``)
+    times with ``needles`` planted at ``DENSITY`` per byte: the
+    ``[n_docs, DOC_BYTES]`` array and the planted ``(doc, offset,
+    pattern)`` rows."""
     length = len(needles[0])
-    dens = np.repeat(base[None], DENSITY_REPS, axis=0).reshape(-1, DOC_BYTES)
+    reps = DENSITY_REPS if reps is None else reps
+    dens = np.repeat(base[None], reps, axis=0).reshape(-1, DOC_BYTES)
     prng = random.Random(seed)
     planted = []
     for _ in range(int(DENSITY * dens.size)):
@@ -1647,7 +1666,7 @@ def phase_signature_path(torch, card, kernels):
         f"{h8.total_bytes / d_ms / 1e6:.3f} GB/s, rows "
         f"{tuple(h8.chunks_d.shape)}, hand kernel launches {d_launched}; on "
         f"{card}")
-    return launched, err
+    return launched, err, (m, docs, res[0], rdfa, n_slice)
 
 
 def phase_compressed_path(torch, card, kernels, head):
@@ -2065,6 +2084,349 @@ def phase_serving_path(torch, card, kernels, head, tile_cell, base):
     return launched, err
 
 
+SHARDS = 4  # phase 11: shards of the one card
+TWO_PROC_REPS, TWO_PROC_SHARDS = 8, 2  # 16 MiB of planted docs; shards a rank
+
+
+def spy_first(module, name, fn):
+    """Run ``fn()`` with the kernel wrapper ``module.name`` wrapped so that
+    its first call is kept: returns ``fn()``'s result and that call's
+    ``(args, kwargs, output)``.  The wrapper still counts its launches."""
+    real, seen = getattr(module, name), []
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if not seen:
+            seen.append((args, kw, out))
+        return out
+
+    # the wrappers count their launches on the module's name
+    spy.launches = real.launches
+    if hasattr(real, "segmented_launches"):
+        spy.segmented_launches = real.segmented_launches
+    setattr(module, name, spy)
+    try:
+        res = fn()
+    finally:
+        setattr(module, name, real)
+        real.launches = spy.launches
+        if hasattr(real, "segmented_launches"):
+            real.segmented_launches = spy.segmented_launches
+    assert seen, f"{name} was not launched"
+    return res, seen[0]
+
+
+def held_to_plain(torch, name, call):
+    """A captured kernel call (``spy_first``) against its plain version on
+    the same inputs: the largest difference (0; else raises)."""
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
+    from php_aho_corasick_tpu_torch.ops.filter_torch import (
+        bloom_hit_take, u32,
+    )
+    from php_aho_corasick_tpu_torch.ops.scan_cuda import (
+        _scan_states_tile_torch,
+    )
+
+    args, kw, got = call
+    if name == "fused_sampled_extract":
+        want = plain(args, kw)
+    elif name == "bloom_word_vmem":
+        table, code, *rest = args
+        got, want = [got], [_bank_probe_torch(table, u32(code), *rest)]
+    elif name == "bloom_hit":
+        got, want = [got], [bloom_hit_take(*args)]
+    else:
+        want = _scan_states_tile_torch(*args, n_classes=kw["n_classes"],
+                                       lengths=kw.get("lengths"))
+    torch.cuda.synchronize()
+    return compare(got, want, f"{name} at a shard's shape")
+
+
+def shard_split(packed, res, n_shards):
+    """Matches of ``res`` per shard, by the row that owns each match's end
+    (rows split into ``n_shards`` contiguous blocks)."""
+    rows = np.nonzero(packed.lengths > 0)[0]
+    key_rows = (packed.doc_id[rows].astype(np.int64) << 40) | (
+        packed.global_off[rows] + packed.emit_from[rows])
+    key = (res["doc"].astype(np.int64) << 40) | (res["pos"] - 1)
+    owner = rows[np.searchsorted(key_rows, key, side="right") - 1]
+    return np.bincount(owner // (packed.batch // n_shards),
+                       minlength=n_shards)
+
+
+def two_process_docs(reps):
+    """Phase 11e's corpus: ``reps`` x 2 MiB of the base documents with the
+    headline needles planted at ``DENSITY``, and the needles."""
+    needles, base = workload()
+    dens, _ = planted_docs(needles, base, int(DENSITY * 1e9) + 2, reps)
+    return needles, [row.tobytes() for row in dens]
+
+
+def two_process_worker(addr, rank, device, reps):
+    """One of the two ranks of phase 11e: joins a gloo group at ``addr``,
+    shards ``two_process_docs(reps)`` over ``TWO_PROC_SHARDS`` shards of
+    ``device`` a process and prints its record count and a digest of the
+    records."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch.parallel.mesh import (
+        data_mesh, init_distributed, local_shards,
+    )
+
+    init_distributed(addr, 2, rank, backend="gloo")
+    needles, docs = two_process_docs(reps)
+    m = Matcher([{"id": i, "value": p} for i, p in enumerate(needles)],
+                ScanConfig(backend="device", chunk_len=4096), device=device)
+    with local_shards(TWO_PROC_SHARDS):
+        mesh = data_mesh(device=m.device)
+        hs = m.device_corpus(docs, shard=True)
+        res = m.match_arrays_many([hs])[0]
+    digest = hashlib.sha256(b"".join(
+        res[k].tobytes() for k in ("doc", "pos", "pattern"))).hexdigest()
+    print(f"TWO-PROC rank={rank} backend={dist.get_backend()} "
+          f"shards={len(mesh)} local={mesh.n_local} "
+          f"records={res['doc'].shape[0]} digest={digest[:16]}", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_two_processes(torch, card, m):
+    """Phase 11e: two ranks on the one card through ``torch.distributed``
+    with gloo (NCCL cannot pair two ranks on one device), each holding
+    its own shards' rows; both must report the single-process records."""
+    import hashlib
+    import socket
+
+    _, docs = two_process_docs(TWO_PROC_REPS)
+    res = m.match_arrays(m.device_corpus(docs, shard=False))
+    assert res["doc"].shape[0] > 0
+    digest = hashlib.sha256(b"".join(
+        res[k].tobytes() for k in ("doc", "pos", "pattern"))).hexdigest()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--worker", f"127.0.0.1:{port}",
+         str(rank), DEVICE, str(TWO_PROC_REPS)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=300)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    lines = []
+    for rank, (pr, out) in enumerate(zip(procs, outs)):
+        assert pr.returncode == 0, f"rank {rank} failed:\n{out}"
+        line = [ln for ln in out.splitlines() if ln.startswith("TWO-PROC")]
+        assert len(line) == 1, out
+        lines.append(line[0])
+        log(f"  {line[0]}")
+    want = (f"backend=gloo shards={2 * TWO_PROC_SHARDS} "
+            f"local={TWO_PROC_SHARDS} records={res['doc'].shape[0]} "
+            f"digest={digest[:16]}")
+    for rank, line in enumerate(lines):
+        assert line == f"TWO-PROC rank={rank} {want}", (line, want)
+    log(f"two processes (torch.distributed, gloo, both ranks on {m.device}, "
+        f"{2 * TWO_PROC_SHARDS} shards over "
+        f"{sum(map(len, docs)) / 2**20:.0f} MiB): both report "
+        f"{res['doc'].shape[0]} records, digest equal to the "
+        f"single-process result; on {card}")
+
+
+def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
+                     base):
+    """Phase 11: the data mesh, ``SHARDS`` shards of the one card.  (a)
+    the headline's 128 MiB through ``device_corpus(shard=True)`` and
+    ``match_arrays_many([handle] * 12)``: records equal to the unsharded
+    handle's, per-shard record counts equal to a host split of them, ms a
+    pass by CUDA events in turns with the unsharded handle, launches a pass
+    by trace, no host sync in the sharded dispatch; (b) phase 4's planted
+    64 MiB sharded: every planted needle found, records equal to phase
+    4's, per-shard record counts equal to a host split; (c) ``match_arrays`` sharded through the tile, dfa, k-gram,
+    anchored, rows, take-grouped, headline-compressed and signature-byte
+    cells, each equal to its unsharded records, the compressed table held
+    once on the card; (d) ``dryrun_multichip(SHARDS, "cuda")``; (e) two
+    processes on the card over 16 MiB of planted documents.  Each kernel's first launch of the phase, at a
+    shard's shape, is held against its plain version.  Returns the hand
+    kernels' launches of the phase and their largest difference."""
+    import dataclasses
+
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch.ops import filter_cuda, scan_cuda
+    from php_aho_corasick_tpu_torch.parallel.dryrun import dryrun_multichip
+    from php_aho_corasick_tpu_torch.parallel.mesh import local_shards
+
+    needles, m, h, warm = head
+    hd, rd = planted
+    cm = m.cascade_model
+    err = 0
+    counts_zeroed(kernels)
+    with local_shards(SHARDS):
+        # (a) the headline, sharded
+        docs = [row.tobytes() for row in base] * HEADLINE_REPS
+        hs = m.device_corpus(docs, shard=True)
+        assert len(hs.mesh) == SHARDS and len(hs.chunks_d) == SHARDS
+        assert all(c.device == h.chunks_d.device for c in hs.chunks_d)
+        res, call = spy_first(filter_cuda, "fused_sampled_extract",
+                              lambda: m.match_arrays(hs))
+        same_arrays(res, warm, "sharded headline")
+        err = max(err, held_to_plain(torch, "fused_sampled_extract", call))
+        log(f"phase 11a: headline sharded over {SHARDS} shards of "
+            f"{hs.mesh.home}: rows {[tuple(c.shape) for c in hs.chunks_d]}; "
+            f"fused_sampled_extract at a shard's phases "
+            f"{tuple(call[0][1].shape)}: bit-equal to its plain version")
+        m.match_arrays_many([hs] * BATCH)  # warm the batch structure
+        fse = kernels[0]
+        turns = []
+        for who, hh in (("sharded", hs), ("unsharded", h)) * 2:
+            n0 = fse.launches
+            ms, r, wall = timed_passes(
+                torch, lambda: m.match_arrays_many([hh] * BATCH), 1)
+            turns.append((who, ms / BATCH, wall / BATCH,
+                          (fse.launches - n0) / BATCH))
+            for x in r:
+                same_arrays(x, warm, f"{who} headline batch")
+        for who, ms, wall, nf in turns:
+            log(f"  {who}: {ms:.3f} ms/pass by CUDA events ({wall:.3f} ms "
+                f"host clock), {hs.total_bytes / ms / 1e6:.2f} GB/s, "
+                f"fused_sampled_extract launches/pass {nf:.0f}; on {card}")
+        pending = assert_no_sync(
+            torch, lambda: m._records_batch_sharded_dispatch([hs] * 2, cm))
+        nrs = pending[5].cpu().numpy()[:, 6:]
+        m._records_batch_sharded_finish(*pending, True)
+        split = shard_split(hs.packed, warm, SHARDS)
+        assert all(x.tolist() == split.tolist() for x in nrs), (nrs, split)
+        log(f"phase 11a: per-shard record counts {split.tolist()} equal the "
+            f"host split of the records ({warm['doc'].shape[0]}); sync check"
+            f" (set_sync_debug_mode='error'): no host sync in the sharded "
+            f"dispatch")
+        for who, hh in (("sharded", hs), ("unsharded", h)):
+            log(f"  trace, {who}:")
+            trace_breakdown(torch, lambda n: m.match_arrays_many([hh] * n),
+                            card)
+
+        # (b) phase 4's planted corpus, sharded
+        dens, plants = planted_docs(needles, base, int(DENSITY * 1e9))
+        hds = m.device_corpus([row.tobytes() for row in dens], shard=True)
+        rds = m.match_arrays_many([hds])[0]
+        same_arrays(rds, rd, "sharded planted")
+        found = set(zip(rds["doc"].tolist(), rds["pos"].tolist(),
+                        rds["pattern"].tolist()))
+        length = len(needles[0])
+        intact = [(d, o + length, p) for d, o, p in plants
+                  if dens[d, o : o + length].tobytes() == needles[p]]
+        assert all(x in found for x in intact), "sharded planted: missing"
+        pending = m._records_batch_sharded_dispatch([hds], cm)
+        nrs = pending[5].cpu().numpy()[0, 6:]
+        m._records_batch_sharded_finish(*pending, True)
+        split = shard_split(hds.packed, rds, SHARDS)
+        assert nrs.tolist() == split.tolist(), (nrs, split)
+        log(f"phase 11b: planted 64 MiB sharded: {len(plants)} planted, "
+            f"{len(intact)} intact all found, {rds['doc'].shape[0]} records "
+            f"equal to phase 4's; per-shard record counts {split.tolist()} "
+            f"equal the host split of the records")
+
+        # (c) every engine, sharded, against its unsharded records
+        def cell(name, mm, hh, want, spy=None):
+            t0 = time.perf_counter()
+            if spy is None:
+                got = mm.match_arrays(hh)
+            else:
+                got, call = spy_first(spy[0], spy[1],
+                                      lambda: mm.match_arrays(hh))
+                cell.err = max(cell.err, held_to_plain(torch, spy[1], call))
+            wall = (time.perf_counter() - t0) * 1e3
+            same_arrays(got, want, f"sharded {name}")
+            log(f"phase 11c: {name} sharded "
+                f"({mm._pick_engine(hh.total_bytes)}, "
+                f"{hh.total_bytes / 2**20:.0f} MiB, {len(hh.mesh)} shards): "
+                f"{got['doc'].shape[0]} records equal to unsharded; "
+                f"{wall:.1f} ms host clock"
+                + (f"; {spy[1]} at a shard's shape bit-equal to plain"
+                   if spy else ""))
+            return got
+
+        cell.err = 0
+        specs, th, res_tile, res_dfa = tile_cell
+        tdocs = [row.tobytes() for row in base] * TILE_REPS
+        mt = Matcher(specs, ScanConfig(backend="device",
+                                       match_capacity=TILE_CAPACITY),
+                     device=DEVICE)
+        cell("tile", mt, mt.device_corpus(tdocs, shard=True), res_tile,
+             (scan_cuda, "scan_states_tile"))
+        n8 = (8 << 20) // DOC_BYTES
+        md = Matcher(specs, ScanConfig(backend="device", engine="dfa",
+                                       match_capacity=TILE_CAPACITY),
+                     device=DEVICE)
+        sel = res_dfa["doc"] < n8
+        cell("dfa", md, md.device_corpus(tdocs[:n8], shard=True),
+             {k: v[sel] for k, v in res_dfa.items()})
+        mk = Matcher(specs, ScanConfig(backend="device", engine="kgram",
+                                       match_capacity=TILE_CAPACITY),
+                     device=DEVICE)
+        cell("kgram", mk, mk.device_corpus(tdocs, shard=True), res_tile)
+        for name, length, cfg in (
+            ("anchored", ANCHORED_LEN, dict(engine="cascade")),
+            ("rows", ROWS_LEN, {}),
+        ):
+            mm = Matcher([{"id": i, "value": p}
+                          for i, p in enumerate(needle_set(length))],
+                         ScanConfig(backend="device", chunk_len=4096, **cfg),
+                         device=DEVICE)
+            cdocs = tdocs[:n8] if name == "anchored" else tdocs
+            want = mm.match_arrays(mm.device_corpus(cdocs, shard=False))
+            cell(name, mm, mm.device_corpus(cdocs, shard=True), want,
+                 (filter_cuda, "bloom_hit" if name == "anchored"
+                  else "bloom_word_vmem"))
+        specs_h = [{"id": i, "value": v} for i, v in enumerate(needles)]
+        mg = Matcher(specs_h, ScanConfig(backend="device", chunk_len=4096,
+                                         bloom_impl="take"), device=DEVICE)
+        assert mg.cascade_model.take_branch(hs.packed.row_len) == "grouped"
+        cell("take-grouped", mg, hs, mg.match_arrays(h),
+             (filter_cuda, "bloom_hit"))
+        mc = Matcher(specs_h, ScanConfig(backend="device", chunk_len=4096,
+                                         table_format="compressed"),
+                     device=DEVICE)
+        cell("headline-compressed", mc, hds, rd)
+        ms_, sdocs, res_sig, res_sdfa, n_slice = sig
+        cell("signature-byte", ms_, ms_.device_corpus(sdocs, shard=True),
+             res_sig)
+        ms_.config = dataclasses.replace(ms_.config, engine="dfa")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        hs8 = ms_.device_corpus(sdocs[:n_slice], shard=True)
+        cell("signature-byte dfa", ms_, hs8, res_sdfa)
+        ms_.config = dataclasses.replace(ms_.config, engine="auto")
+        dense = ms_.model.device_arrays["dense_flat"]
+        per_shard = ms_._sharded_arrays(hs8.mesh, "compressed")
+        assert all(a["dense_flat"].data_ptr() == dense.data_ptr()
+                   for a in per_shard)
+        assert not ms_.cascade_model.__dict__.get("_replicas")
+        grown = torch.cuda.memory_allocated() - before
+        assert grown < dense.numel() * dense.element_size(), grown
+        log(f"phase 11c: the compressed table ({dense.numel() * 4} bytes of "
+            f"dense bank) is held once on the card for {SHARDS} shards: "
+            f"device memory grew {grown} bytes over the sharded dfa pass "
+            f"(its 8 MiB of rows and buffers included)")
+        err = max(err, cell.err)
+        launched = launched_of(kernels)
+
+    # (d) the dry run; (e) two processes on the card
+    log(f"phase 11d: {dryrun_multichip(SHARDS, DEVICE)}")
+    phase_two_processes(torch, card, m)
+    assert all(n > 0 for n in launched), launched
+    log(f"phase 11 hand kernel launches (fused, rows, bloom_hit, tile): "
+        f"{launched}")
+    return launched, err
+
+
 def main(argv=None):
     import argparse
 
@@ -2073,8 +2435,16 @@ def main(argv=None):
         "--parent", metavar="CSRC",
         help="the csrc directory of another checkout: its bloom_word_vmem "
              "is built and timed beside this tree's at the rows cell")
-    parent = ap.parse_args(argv).parent
+    ap.add_argument(
+        "--worker", nargs=4, metavar=("HOST:PORT", "RANK", "DEVICE", "REPS"),
+        help="run one of phase 11e's two ranks (the script starts them)")
+    opts = ap.parse_args(argv)
+    parent = opts.parent
     import torch
+
+    if opts.worker:
+        addr, rank, device, reps = opts.worker
+        return two_process_worker(addr, int(rank), device, int(reps))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2234,7 +2604,7 @@ def main(argv=None):
 
     # 9. the compressed table, the flagged-window verify, the k-gram engine
     kernels = (fse, bwv, bh, sst)
-    sig_launched, sig_err = phase_signature_path(torch, card, kernels)
+    sig_launched, sig_err, sig = phase_signature_path(torch, card, kernels)
     comp_launched, comp_err = phase_compressed_path(
         torch, card, kernels, (needles, m, hd, rd))
     kgram_launched = phase_kgram_path(torch, card, kernels, tile_cell)
@@ -2255,7 +2625,17 @@ def main(argv=None):
         k["launches"] += n
     err2 = max(err2, serve_err)
 
-    # 11. timings and the last line
+    # 11. the data mesh: 4 shards of the card
+    shard_launched, shard_err = phase_shard_path(
+        torch, card, kernels, (needles, m, h, warm), (hd, rd), tile_cell, sig,
+        base)
+    launches += shard_launched[0]
+    for k, n in zip((rows_kernel, hit_kernel, tile_kernel),
+                    shard_launched[1:]):
+        k["launches"] += n
+    err2 = max(err2, shard_err)
+
+    # 12. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",

@@ -27,10 +27,12 @@ would exceed ``dense_table_max_bytes`` finalize to the compressed table
 (:attr:`Matcher.table_format`), served by the sampled cascade or the
 compressed DFA.
 
-A matcher runs on one device: CUDA unless the caller passes
-``device="cpu"``.  Where the path meets a mode this port does not have
-yet, it raises ``NotImplementedError`` naming the ROADMAP item; it never
-falls back to another engine silently.
+A matcher runs on CUDA unless the caller passes ``device="cpu"``.  Its
+scans shard over a data mesh (``parallel/mesh.py``: every visible card,
+or ``n`` shards of one device inside ``parallel.mesh.local_shards(n)``)
+when ``config.auto_shard`` is set and the mesh has more than one shard,
+or for a handle from ``device_corpus(docs, shard=True)``: each shard runs
+the single-device chain on its row block (``parallel/shard_scan.py``).
 """
 
 from __future__ import annotations
@@ -63,12 +65,6 @@ class StateError(AhoError):
     (reference: PHP warning + ``false``)."""
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1 item {item}"
-    )
-
-
 def resolve_device(device=None) -> torch.device:
     """The device a matcher runs on: CUDA by default, the CPU only when
     asked for.  Raises ``RuntimeError`` when CUDA is wanted but absent."""
@@ -89,11 +85,15 @@ class DeviceCorpus:
     pays ``pack_documents`` + the host->device copy once, and every scan
     against the handle re-reads the resident bytes.  The corpus word
     phases of the fused filter are cached per handle the first time a
-    scan needs them."""
+    scan needs them.
+
+    A sharded handle (``mesh`` set) holds this process's row blocks:
+    ``chunks_d``, ``lengths_d`` and ``emit_from_d`` are then lists with
+    one tensor per local shard, on that shard's device."""
 
     def __init__(self, packed: PackedRows, chunks_d, lengths_d,
                  emit_from_d, n_docs: int, total_bytes: int,
-                 chunk_len: int):
+                 chunk_len: int, mesh=None):
         self.packed = packed
         self.chunks_d = chunks_d
         self.lengths_d = lengths_d
@@ -101,10 +101,14 @@ class DeviceCorpus:
         self.n_docs = n_docs
         self.total_bytes = total_bytes
         self.chunk_len = chunk_len
+        #: parallel.mesh.DataMesh of a sharded handle; None: one device
+        self.mesh = mesh
         self._phase_cache: dict = {}
 
     @property
     def device(self) -> torch.device:
+        if self.mesh is not None:
+            return self.mesh.home
         return self.chunks_d.device
 
     def fused_phases(self, cascade_model):
@@ -115,7 +119,7 @@ class DeviceCorpus:
         if cascade_model is None:
             return None
         p = cascade_model.plan
-        L = self.chunks_d.shape[1]
+        L = self.packed.row_len
         if (
             p.mode != "sampled"
             or not p.stride
@@ -128,8 +132,11 @@ class DeviceCorpus:
         if key not in self._phase_cache:
             from .ops.filter_torch import fused_phase_grid
 
-            self._phase_cache[key] = fused_phase_grid(
-                self.chunks_d, spc=p.stride // 4
+            spc = p.stride // 4
+            self._phase_cache[key] = (
+                fused_phase_grid(self.chunks_d, spc=spc)
+                if self.mesh is None
+                else [fused_phase_grid(c, spc=spc) for c in self.chunks_d]
             )
         return self._phase_cache[key]
 
@@ -144,7 +151,8 @@ class DeviceCorpus:
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return (
             f"DeviceCorpus(docs={self.n_docs}, bytes={self.total_bytes}, "
-            f"chunk_len={self.chunk_len}, device={self.device})"
+            f"chunk_len={self.chunk_len}, device={self.device}, "
+            f"mesh={self.mesh})"
         )
 
 
@@ -163,7 +171,8 @@ def _first_groups(results: List[List[dict]]) -> List[List[dict]]:
 
 
 class Matcher:
-    """Multi-pattern byte matcher on one device."""
+    """Multi-pattern byte matcher on a device, or sharded over a data
+    mesh."""
 
     def __init__(
         self,
@@ -185,6 +194,9 @@ class Matcher:
         self._tile = _UNSET
         self._kmodel = None
         self._fetch_stream = None  # CUDA side stream of the records fetch
+        #: per-shard automaton arrays of the sharded scans, by engine and
+        #: mesh: uploaded once, not once a pass
+        self._sharded_dev_cache: dict = {}
         self.stats = ScanStats()
         self._finalized = False
         self._valid = True
@@ -467,8 +479,8 @@ class Matcher:
             # independent, so this is exact)
             engine = "-"
             for g in self._launch_groups(docs, self.config.max_launch_bytes):
-                engine, docs_a, ends_a, pids_a = self._scan_handle_arrays(
-                    self._upload([docs[i] for i in g])
+                engine, docs_a, ends_a, pids_a = self._scan_device_arrays(
+                    [docs[i] for i in g]
                 )
                 sub = [[] for _ in g]
                 self._emit_records(docs_a, ends_a, pids_a, sub)
@@ -485,14 +497,23 @@ class Matcher:
         """Pack + upload a corpus once, returning a resident
         :class:`DeviceCorpus` accepted by :meth:`match_many`,
         :meth:`match_arrays` and :meth:`match_arrays_many`.
-        ``shard=True`` (rows over several devices) is not ported."""
+
+        ``shard``: split the packed rows over the data mesh
+        (``parallel/mesh.data_mesh``), so every scan against the handle
+        runs per shard (``parallel/shard_scan.py``).  Default: shard when
+        ``config.auto_shard`` is set and the mesh has more than one
+        shard; a mesh of one shard never shards."""
         if not self._valid:
             warn("device_corpus on a closed matcher")
             raise StateError("matcher is closed")
         if not self._finalized:
             self.finalize()
-        if shard:
-            raise _not_ported("the sharded device corpus", 10)
+        from .parallel.mesh import data_mesh
+
+        mesh = data_mesh(device=self.device)
+        use_mesh = (
+            shard if shard is not None else self.config.auto_shard
+        ) and len(mesh) > 1
         docs = [_as_bytes(h) for h in haystacks]
         total = sum(map(len, docs))
         if total > self.config.max_launch_bytes:
@@ -501,30 +522,57 @@ class Matcher:
                 f"max_launch_bytes={self.config.max_launch_bytes}; "
                 "split into multiple handles"
             )
-        return self._upload(docs)
+        return self._upload(docs, mesh if use_mesh else None)
 
-    def _upload(self, docs: List[bytes]) -> DeviceCorpus:
-        """Pack ``docs`` into halo-overlapped rows and copy them to the
-        device.  On CUDA the rows go through pinned host memory and the
-        copies are enqueued without waiting, so the host returns while
-        earlier work (a previous slice's chain) still runs."""
+    def _auto_mesh(self):
+        """The data mesh of a scan over a document list: the default mesh
+        where ``config.auto_shard`` is set and it has more than one shard,
+        else None (one device)."""
+        if not self.config.auto_shard:
+            return None
+        from .parallel.mesh import data_mesh
+
+        mesh = data_mesh(device=self.device)
+        return mesh if len(mesh) > 1 else None
+
+    def _pack(self, docs: List[bytes], n_shards: int = 1) -> PackedRows:
+        """Halo-overlapped rows of ``docs``; the row count is padded to a
+        multiple of ``lcm(batch_pad, n_shards)``, which sets the shard
+        boundaries of a sharded scan."""
+        import math
+
         halo = max(self._auto.max_len - 1, 0)
-        packed = pack_documents(
-            docs, self._pack_chunk_len(), halo, self.config.batch_pad,
+        return pack_documents(
+            docs, self._pack_chunk_len(), halo,
+            math.lcm(self.config.batch_pad, n_shards),
             row_align=self._row_align(),
         )
-        pin = self.device.type == "cuda"
 
-        def put(x):
-            t = torch.from_numpy(x)
-            return (t.pin_memory() if pin else t).to(
-                self.device, non_blocking=True
-            )
+    def _upload(self, docs: List[bytes], mesh=None) -> DeviceCorpus:
+        """Pack ``docs`` into halo-overlapped rows and copy them to the
+        device, or this process's row blocks to their shards' devices
+        when ``mesh`` is given.  On CUDA the rows go through pinned host
+        memory and the copies are enqueued without waiting, so the host
+        returns while earlier work (a previous slice's chain) still
+        runs."""
+        packed = self._pack(docs, len(mesh) if mesh is not None else 1)
+        pin = self.device.type == "cuda"
+        if mesh is not None:
+            from .parallel.mesh import row_sharding
+
+            def put(x):
+                return row_sharding(mesh, x, pin=pin)
+        else:
+            def put(x):
+                t = torch.from_numpy(x)
+                return (t.pin_memory() if pin else t).to(
+                    self.device, non_blocking=True
+                )
 
         return DeviceCorpus(
             packed, put(packed.chunks), put(packed.lengths),
             put(packed.emit_from), len(docs), sum(map(len, docs)),
-            self.config.chunk_len,
+            self.config.chunk_len, mesh=mesh,
         )
 
     def _pack_chunk_len(self) -> int:
@@ -557,6 +605,26 @@ class Matcher:
                 f"corpus handle lives on {dc.device}, matcher on {self.device}"
             )
 
+    def _scan_device_arrays(self, docs: List[bytes]):
+        """Device scan of one launch group; returns ``(engine, doc_ids,
+        end_positions, pattern_ids)`` in reference emission order.  With
+        ``auto_shard`` and a mesh of more than one shard the rows are
+        sharded, apart from a cascade on the compressed table, which the
+        reference serves on one device (its rows still padded for the
+        mesh)."""
+        mesh = self._auto_mesh()
+        if mesh is None:
+            return self._scan_handle_arrays(self._upload(docs))
+        if (
+            self.table_format == "compressed"
+            and self._pick_engine(sum(map(len, docs))) == "cascade"
+        ):
+            arrays = self.cascade_model.run_arrays(
+                self._pack(docs, len(mesh)), self.config.match_capacity
+            )
+            return ("cascade",) + tuple(arrays)
+        return self._scan_handle_arrays(self._upload(docs, mesh))
+
     def _scan_handle_arrays(self, dc: DeviceCorpus):
         """Engine dispatch over a resident corpus handle; returns
         ``(engine, doc_ids, end_positions, pattern_ids)`` in reference
@@ -564,6 +632,26 @@ class Matcher:
         self._check_handle(dc)
         engine = self._pick_engine(dc.total_bytes)
         capacity = self.config.match_capacity
+        if dc.mesh is not None:
+            if engine == "cascade":
+                arrays = self._run_sharded_cascade(dc, capacity)
+                return ("cascade",) + tuple(arrays)
+            sharded_engine = (
+                "compressed"
+                if engine == "dfa" and self.table_format == "compressed"
+                else engine
+            )
+            idx_np, aux_np, n = self._run_sharded(dc, capacity, sharded_engine)
+            if engine == "kgram":
+                arrays = expand_matches_kgram_arrays(
+                    self._auto, dc.packed, self.kgram_model.k, idx_np,
+                    aux_np, n,
+                )
+            else:
+                arrays = expand_matches_arrays(
+                    self._auto, dc.packed, idx_np, aux_np, n
+                )
+            return (engine,) + tuple(arrays)
         if engine == "cascade":
             cm = self.cascade_model
             arrays = cm.run_arrays(
@@ -682,9 +770,7 @@ class Matcher:
                 np.concatenate(eparts),
                 np.concatenate(pparts),
             )
-        _, docs_a, ends_a, pids_a = self._scan_handle_arrays(
-            self._upload(sub)
-        )
+        _, docs_a, ends_a, pids_a = self._scan_device_arrays(sub)
         gmap = np.asarray(group, dtype=np.int64)
         return gmap[docs_a], ends_a, pids_a
 
@@ -743,6 +829,13 @@ class Matcher:
             return [self.match_arrays(h, find_all) for h in handles]
         for h in handles:
             self._check_handle(h)
+        if all(h.mesh is not None for h in handles):
+            return self._records_batch_sharded_finish(
+                *self._records_batch_sharded_dispatch(handles, cm), find_all
+            )
+        if any(h.mesh is not None for h in handles):
+            # mixed residency: each handle on its own fast path
+            return [self.match_arrays(h, find_all) for h in handles]
         return self._records_batch_finish(
             *self._records_batch_dispatch(handles, cm), find_all
         )
@@ -754,16 +847,14 @@ class Matcher:
         host->device upload overlap slice ``k``'s device scan (and slice
         ``k-1``'s host emission).  Returns the merged columnar dict, or
         None when the pipeline does not apply (small input, no
-        records-path plan: those keep the grouped path)."""
+        records-path plan, or a mesh of more than one shard under
+        ``auto_shard``: those keep the grouped path)."""
         cm = self.cascade_model
         slice_bytes = min(
             self.config.fresh_slice_bytes,
             self.config.max_launch_bytes // 2,
         )
         total = sum(map(len, docs))
-        # The reference also keeps the grouped path where ``auto_shard`` is
-        # set and several devices are visible; a matcher here serves one
-        # device until the sharded corpus (ROADMAP queue 1 item 10) exists.
         if (
             cm is None
             or cm.plan.mode != "sampled"
@@ -771,6 +862,7 @@ class Matcher:
             or len(docs) < 2
             or total < 2 * slice_bytes
             or max(map(len, docs)) > slice_bytes
+            or self._auto_mesh() is not None
             or self._pick_engine(total) != "cascade"
         ):
             return None
@@ -825,6 +917,7 @@ class Matcher:
                 and cm is not None
                 and cm.plan.mode == "sampled"
                 and cm.records_ok
+                and all(h.mesh is None for h in batch)
                 and all(
                     self._pick_engine(h.total_bytes) == "cascade"
                     for h in batch
@@ -924,6 +1017,299 @@ class Matcher:
             done = side.record_event()
         done.synchronize()
         return host.numpy()
+
+    # ------------------------------------------------------------ sharded
+
+    def _records_batch_sharded_dispatch(self, handles, cm):
+        """Enqueue every shard's records chain of every sharded handle,
+        back to back, and stack each handle's ``[gstats_hits, gstats_rec,
+        gstats_coarse, n_recs]`` into one device tensor: device work only,
+        no host fetch."""
+        from .parallel.mesh import process_count
+        from .parallel.shard_scan import sharded_sampled_records
+
+        collect = process_count() > 1
+        cm.rescale_caps_per_shard(len(handles[0].mesh))
+        cap_a = max(cm._cap_hits, 256)
+        cap_r = max(cm._cap_flagged, 256)
+        outs = []
+        for h in handles:
+            chunks, lengths, emit_from, phases = h.dev_inputs_for(cm)
+            outs.append(sharded_sampled_records(
+                h.mesh, cm, chunks, lengths, emit_from, cap_a, cap_r,
+                collect=collect, phase_g=phases,
+            ))
+        stats = torch.stack([
+            torch.cat([torch.stack([gh, gr, gc]).reshape(-1), nrs])
+            for (_, _, nrs, gh, gr, gc) in outs
+        ])
+        return handles, cm, outs, cap_a, cap_r, stats, collect
+
+    def _records_batch_sharded_finish(self, handles, cm, outs, cap_a, cap_r,
+                                      stats, collect, find_all):
+        """One fetch of the stacked stats decides each handle's retries
+        (on the per-shard maxima); every in-capacity handle's per-shard
+        record slices then come back in one concatenated fetch."""
+        stats = stats.cpu().numpy()
+        meta, groups = [], []
+        for (rc, rp, *_), st in zip(outs, stats):
+            ok = (
+                int(st[1]) <= cap_a
+                and int(st[3]) <= cap_r
+                and int(st[5]) <= cm._cap_coarse
+            )
+            if ok:
+                groups.append((rc, rp, [int(x) for x in st[6:]]))
+            meta.append(ok)
+        gathered = iter(self._gather_shard_records(groups))
+        results = []
+        for h, ok in zip(handles, meta):
+            if not ok:
+                chunks, lengths, emit_from, phases = h.dev_inputs_for(cm)
+                arrays = self._sharded_records_arrays(
+                    h.mesh, cm, h.packed, chunks, lengths, emit_from,
+                    collect, phases,
+                )
+            else:
+                cells, packs, total = next(gathered)
+                if total == 0:
+                    z = np.zeros(0, np.int64)
+                    arrays = (z, z, z)
+                else:
+                    arrays = cm.emit_records_arrays(
+                        h.packed, cells, packs, total
+                    )
+            results.append(
+                self._arrays_result(h.total_bytes, *arrays, find_all=find_all)
+            )
+        return results
+
+    @staticmethod
+    def _gather_shard_records(groups):
+        """ONE concatenated device->host fetch of per-shard record slices
+        for any number of record-buffer groups (handles).  ``groups``:
+        ``(rc [n_shards, cap], rp [n_shards, cap], sizes [n_shards])``
+        each; returns one ``(cells, packs, total)`` numpy triple per
+        group, shard-major."""
+        pieces = []
+        for rc, rp, sizes in groups:
+            for s, nr in enumerate(sizes):
+                if nr:
+                    pieces.append(rc[s, :nr])
+                    pieces.append(rp[s, :nr])
+        buf = torch.cat(pieces).cpu().numpy() if pieces else None
+        out = []
+        off = 0
+        z = np.zeros(0, np.int64)
+        for rc, rp, sizes in groups:
+            total = sum(sizes)
+            if total == 0:
+                out.append((z, z, 0))
+                continue
+            cells_l, packs_l = [], []
+            for nr in sizes:
+                if nr:
+                    cells_l.append(buf[off : off + nr])
+                    packs_l.append(buf[off + nr : off + 2 * nr])
+                    off += 2 * nr
+            out.append(
+                (np.concatenate(cells_l), np.concatenate(packs_l), total)
+            )
+        return out
+
+    def _sharded_records_arrays(self, mesh, cm, packed, chunks, lengths,
+                                emit_from, collect, phases=None):
+        """Adaptive sharded record-verify chain and the shard-major record
+        merge: the sharded twin of ``CascadeModel.run_arrays``'s records
+        branch.  One fetch of the stats decides retries (the per-shard
+        maximum of each stage); the records come back in one fetch."""
+        from .parallel.shard_scan import sharded_sampled_records
+
+        state = {}
+
+        def launch_r(cap_a, cap_r):
+            rc, rp, nrs, gh, gr, gc = sharded_sampled_records(
+                mesh, cm, chunks, lengths, emit_from, cap_a, cap_r,
+                collect=collect, phase_g=phases,
+            )
+            flat = torch.cat(
+                [torch.stack([gh, gr, gc]).reshape(-1), nrs]
+            ).cpu().numpy()
+            state["nrs"] = flat[6:]
+            return (rc, rp), int(flat[1]), int(flat[3]), int(flat[5])
+
+        (rc, rp), _ = cm.adaptive_chain(launch_r)
+        sizes = [int(x) for x in state["nrs"]]
+        ((cells, packs, total),) = self._gather_shard_records(
+            [(rc, rp, sizes)]
+        )
+        if total == 0:
+            z = np.zeros(0, np.int64)
+            return z, z, z
+        return cm.emit_records_arrays(packed, cells, packs, total)
+
+    def _run_sharded_cascade(self, dc: DeviceCorpus, capacity: int):
+        """The cascade over a sharded handle: ``(docs, ends, pids)``.
+        Sampled plans that pass the records gate run the per-shard records
+        chain; other plans whose windows verify on the device run the
+        sharded flagged-window chain; other sampled plans the sharded flat
+        filter with host expansion and verify; the anchored plan the
+        sharded candidate filter with host verify."""
+        from .parallel.mesh import process_count
+        from .parallel.shard_scan import (
+            sharded_filter_candidates,
+            sharded_filter_hits_sampled,
+            sharded_sampled_verified,
+        )
+
+        mesh = dc.mesh
+        packed = dc.packed
+        collect = process_count() > 1
+        cm = self.cascade_model
+        # capacities learned on one device are global counts; each shard
+        # needs only its share
+        cm.rescale_caps_per_shard(len(mesh))
+        chunks, lengths, emit_from, phases = dc.dev_inputs_for(cm)
+        if cm.plan.mode == "sampled" and cm.records_ok:
+            return self._sharded_records_arrays(
+                mesh, cm, packed, chunks, lengths, emit_from, collect, phases
+            )
+        if cm.plan.mode == "sampled" and cm.device_verify_ok:
+            state = {}
+
+            def launch(cap_a, cap_b):
+                cells, nfs, gh, gf, gc = sharded_sampled_verified(
+                    mesh, cm, chunks, lengths, cap_a, cap_b,
+                    collect=collect, phase_g=phases,
+                )
+                flat = torch.cat([gh, gf, gc, nfs]).cpu().numpy()
+                state["nfs"] = flat[6:]
+                return cells, int(flat[1]), int(flat[3]), int(flat[5])
+
+            cells, _ = cm.adaptive_chain(launch)
+            pieces = [cells[s, :nf] for s, nf in enumerate(state["nfs"])
+                      if nf]
+            merged = (torch.cat(pieces).cpu().numpy() if pieces
+                      else np.zeros(0, np.int32))
+            return cm.emit_windows_arrays(packed, merged, merged.shape[0])
+        if cm.plan.mode == "sampled":
+            while True:
+                idx, lw, sw, counts, gstats = sharded_filter_hits_sampled(
+                    mesh, cm, chunks, lengths, capacity, collect=collect
+                )
+                counts_np, n_max = self._shard_counts(counts, gstats)
+                if n_max <= capacity:
+                    break
+                capacity = _next_pow2(n_max)
+            idx2d, lw2d, sw2d = self._shard_prefixes((idx, lw, sw), n_max)
+            parts = []
+            total = 0
+            for s in range(idx2d.shape[0]):
+                st, n = cm.expand_hits(
+                    idx2d[s], lw2d[s], sw2d[s], int(counts_np[s]),
+                    packed.row_len, packed.lengths,
+                )
+                parts.append(st)
+                total += n
+            merged = (
+                np.concatenate(parts) if parts else np.zeros(0, np.int64)
+            )
+            return cm.verify_arrays(packed, merged, total)
+        while True:
+            idx, counts, gstats = sharded_filter_candidates(
+                mesh, cm, chunks, lengths, emit_from, capacity,
+                collect=collect,
+            )
+            counts_np, n_max = self._shard_counts(counts, gstats)
+            if n_max <= capacity:
+                break
+            capacity = _next_pow2(n_max)
+        (idx2d,) = self._shard_prefixes((idx,), n_max)
+        parts = [idx2d[s, : counts_np[s]] for s in range(idx2d.shape[0])]
+        merged = np.concatenate(parts) if parts else np.zeros(0, np.int32)
+        return cm.verify_arrays(packed, merged, int(counts_np.sum()))
+
+    def _sharded_arrays(self, mesh, engine: str):
+        """The engine model's automaton arrays for each shard of ``mesh``,
+        held once per distinct device and kept for later passes."""
+        from .parallel.mesh import replicated
+
+        key = (engine, tuple(mesh.devices))
+        if key not in self._sharded_dev_cache:
+            if engine == "kgram":
+                model = self.kgram_model
+            elif engine == "tile":
+                model = self.tile_model
+            else:  # "dfa" and "compressed": the matcher's own table
+                model = self._model
+            self._sharded_dev_cache[key] = replicated(
+                mesh, model.device_arrays
+            )
+        return self._sharded_dev_cache[key]
+
+    def _run_sharded(self, dc: DeviceCorpus, capacity: int, engine: str):
+        """Sharded scan of a handle with exact capacity retry: the retry
+        decision is one fetch of the worst shard's count; the buffers
+        cross to the host once they fit.  Returns the merged ``(idx,
+        aux, n)`` (``ops/matches.merge_shard_buffers``)."""
+        from .ops.matches import merge_shard_buffers
+        from .parallel.mesh import process_count
+        from .parallel.shard_scan import (
+            sharded_scan_compact,
+            sharded_scan_compact_compressed,
+            sharded_scan_compact_kgram,
+            sharded_scan_compact_tile,
+        )
+
+        mesh = dc.mesh
+        auto = self._auto
+        dev = self._sharded_arrays(mesh, engine)
+        collect = process_count() > 1
+        rows = (mesh, dev, dc.chunks_d, None, dc.lengths_d, dc.emit_from_d)
+        while True:
+            if engine == "kgram":
+                idx, aux, counts, gstats, _ = sharded_scan_compact_kgram(
+                    *rows, n_classes=auto.n_classes, k=self.kgram_model.k,
+                    capacity=capacity, collect=collect,
+                )
+            elif engine == "compressed":
+                idx, aux, counts, gstats, _ = sharded_scan_compact_compressed(
+                    *rows, n_classes=auto.n_classes, n_dense=auto.n_dense,
+                    capacity=capacity, collect=collect,
+                )
+            elif engine == "tile":
+                idx, aux, counts, gstats, _ = sharded_scan_compact_tile(
+                    *rows, n_classes=auto.n_classes, capacity=capacity,
+                    collect=collect, sync_len=auto.max_len,
+                )
+            else:
+                idx, aux, counts, gstats, _ = sharded_scan_compact(
+                    *rows, n_classes=auto.n_classes, capacity=capacity,
+                    collect=collect,
+                )
+            counts_np, n_max = self._shard_counts(counts, gstats)
+            if n_max <= capacity:
+                break
+            capacity = _next_pow2(n_max)
+        idx2d, aux2d = self._shard_prefixes((idx, aux), n_max)
+        return merge_shard_buffers(idx2d, aux2d, counts_np)
+
+    @staticmethod
+    def _shard_counts(counts, gstats):
+        """One fetch of a sharded launch's counts: ``(counts [n_shards]
+        numpy, the worst shard's count)`` (the retry decision)."""
+        head = torch.cat([gstats, counts]).cpu().numpy()
+        return head[2:], int(head[1])
+
+    @staticmethod
+    def _shard_prefixes(bufs, width: int):
+        """The first ``width`` slots of each shard of each ``[n_shards,
+        cap]`` buffer, in one fetch: numpy ``[n_shards, width]`` arrays
+        (``width`` is the worst shard's count, so every shard's entries
+        are there)."""
+        n_sh = bufs[0].shape[0]
+        flat = torch.cat([b[:, :width].reshape(-1) for b in bufs])
+        return tuple(flat.cpu().numpy().reshape(len(bufs), n_sh, width))
 
     def _arrays_result(self, n_bytes, docs_a, ends_a, pids_a, find_all) -> dict:
         if not find_all and docs_a.shape[0]:

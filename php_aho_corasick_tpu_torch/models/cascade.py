@@ -618,6 +618,66 @@ class CascadeModel:
         past launches — the starting point for a pipelined batch."""
         return max(self._cap_hits, 256), max(self._cap_flagged, 256)
 
+    def seed_caps(
+        self, n_hits_est: int, n_flagged_est: int, n_shards: int = 1
+    ) -> None:
+        """Pre-seed the adaptive capacities from workload knowledge (a
+        known match density), so the first launch on a new corpus does not
+        walk the doubling ladder.  Estimates are global; with ``n_shards >
+        1`` each shard gets the mean plus a Poisson margin
+        (:func:`~..parallel.shard_scan.per_shard_capacity`)."""
+        from ..parallel.shard_scan import per_shard_capacity
+
+        a = per_shard_capacity(max(n_hits_est, 1), n_shards)
+        b = per_shard_capacity(max(n_flagged_est, 1), n_shards)
+        self._cap_hits = max(self._cap_hits, _next_cap(a))
+        self._cap_flagged = max(self._cap_flagged, _next_cap(b))
+
+    def rescale_caps_per_shard(self, n_shards: int) -> None:
+        """One-time rebase of the learned capacities on entering a sharded
+        run: learning on one device saw global counts, each shard sees
+        about ``1/n_shards`` of them.  Later sharded launches re-learn from
+        the per-shard maximum, so this only sets the first."""
+        from ..parallel.shard_scan import per_shard_capacity
+
+        if getattr(self, "_caps_sharded_for", None) == n_shards:
+            return
+        self._caps_sharded_for = n_shards
+        self._cap_hits = _next_cap(
+            per_shard_capacity(self._cap_hits, n_shards)
+        )
+        self._cap_flagged = _next_cap(
+            per_shard_capacity(self._cap_flagged, n_shards)
+        )
+
+    def on_device(self, device) -> "CascadeModel":
+        """This model on ``device``: itself where that is its own device,
+        else a copy whose device arrays are uploaded to ``device`` once and
+        kept, and whose adaptive capacities are this model's, read at each
+        call (a shard of a mesh runs its chain on its own card)."""
+        import copy
+
+        import torch
+
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        reps = self.__dict__.setdefault("_replicas", {})
+        r = reps.get(device)
+        if r is None:
+            r = copy.copy(self)
+            r.device = device
+            r._dev = r._verify2_table = r._verify_ktable = None
+            r.dense_model = type(self.dense_model)(
+                self.auto, self.config, device
+            )
+            r.stats = None
+            reps[device] = r
+        for k in ("_cap_hits", "_cap_flagged", "_cap_coarse",
+                  "_cap_coarse_floor", "_force_take"):
+            setattr(r, k, getattr(self, k))
+        return r
+
     @property
     def win_len(self) -> int:
         """Window length of the device verifier: covers every occurrence
@@ -853,15 +913,24 @@ class CascadeModel:
         retry bigger).  The verifier is the k-gram walk where
         :attr:`verify_kv` > 1, the compressed walk on a compressed table,
         else the per-class dense walk."""
+        idx, _lw, _sw, n_d, nc_d = self.scan_hits_sampled(
+            chunks_d, lengths_d, cap_a, phase_g=phase_g
+        )
+        cells, nf_d = self.verify_hits(chunks_d, lengths_d, idx, cap_a, cap_b)
+        return cells, n_d, nf_d, nc_d
+
+    def verify_hits(self, chunks_d, lengths_d, idx, cap_a, cap_b,
+                    kgram: bool = True):
+        """The flagged-window verify of ``idx`` (grid hits, ``cap_a``
+        slots): ``(cells [cap_b], nf_d)``.  The walk is the compressed one
+        on a compressed table, the k-gram one where ``kgram`` and
+        :attr:`verify_kv` > 1, else the per-class dense walk."""
         from ..ops.filter_torch import (
             verify_windows, verify_windows_compressed, verify_windows_kgram,
         )
 
         dd = self.dense_model.device_arrays
         dev = self.device_arrays
-        idx, _lw, _sw, n_d, nc_d = self.scan_hits_sampled(
-            chunks_d, lengths_d, cap_a, phase_g=phase_g
-        )
         win = dict(stride=self.plan.stride, win_len=self.win_len,
                    capacity=cap_b, n_hits=cap_a)
         if self._compressed:
@@ -872,7 +941,7 @@ class CascadeModel:
                 n_classes=self.auto.n_classes, n_dense=self.auto.n_dense,
                 **win,
             )
-        elif self.verify_kv > 1:
+        elif kgram and self.verify_kv > 1:
             cells, nf_d = verify_windows_kgram(
                 self.verify_ktable_dev, dev["byte_class"], dev["used_bytes"],
                 chunks_d, lengths_d, idx, dd["final_start"],
@@ -884,7 +953,7 @@ class CascadeModel:
                 chunks_d, lengths_d, idx, dd["final_start"],
                 n_classes=self.auto.n_classes, **win,
             )
-        return cells, n_d, nf_d, nc_d
+        return cells, nf_d
 
     def launch_device_records(
         self, chunks_d, lengths_d, emit_from_d, cap_a, cap_r, phase_g=None,

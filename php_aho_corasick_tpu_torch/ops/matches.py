@@ -128,6 +128,25 @@ def pack_documents(
     return PackedRows(chunks, lengths, emit_from, doc_id, global_off)
 
 
+def merge_shard_buffers(
+    idx2d: np.ndarray,  # [n_shards, capacity] global cell indices
+    sts2d: np.ndarray,  # [n_shards, capacity]
+    counts: np.ndarray,  # [n_shards] true per-shard match counts
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Concatenate per-shard compacted buffers into one ascending stream.
+
+    Shards hold contiguous row blocks and entries are ascending within a
+    shard, so shard-order concatenation is globally ascending.
+    """
+    parts_i = [idx2d[s, : counts[s]] for s in range(idx2d.shape[0])]
+    parts_s = [sts2d[s, : counts[s]] for s in range(idx2d.shape[0])]
+    return (
+        np.concatenate(parts_i) if parts_i else np.zeros(0, np.int32),
+        np.concatenate(parts_s) if parts_s else np.zeros(0, np.int32),
+        int(counts.sum()),
+    )
+
+
 def csr_expand(
     auto: CompiledAutomaton,
     states: np.ndarray,  # [n] final states

@@ -543,3 +543,46 @@ def test_stream_and_replace_card_equal_cpu(cuda, engine):
         res.append((recs, out))
     assert res[0] == res[1]
     assert len(res[0][0]) >= 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    dict(),  # the fused filter's records chain
+    dict(bloom_impl="take"),  # the grouped take filter (bloom_hit)
+    dict(table_format="compressed"),
+    dict(engine="dfa"),
+    dict(engine="kgram"),
+])
+def test_sharded_card_equal_cpu(cuda, cfg):
+    """Four shards of the card (``local_shards(4)``) against four shards
+    of the CPU and the unsharded card: the records of the fused,
+    grouped-take and compressed cascades and of the dfa and k-gram
+    engines equal, and the sharded records dispatch makes no host
+    sync."""
+    from php_aho_corasick_tpu_torch.parallel.mesh import local_shards
+
+    specs, docs = _serving_case(160)  # 1.25 MiB: the cascade's size
+    config = port.ScanConfig(chunk_len=4096, **cfg)
+    res = []
+    with local_shards(4):
+        for device in (cuda, "cpu"):
+            m = port.Matcher(specs, config, device=device)
+            h = m.device_corpus(docs, shard=True)
+            assert len(h.mesh) == 4 and h.chunks_d[0].device.type == (
+                torch.device(device).type)
+            res.append(m.match_arrays_many([h, h]))
+        m = port.Matcher(specs, config, device=cuda)
+        res.append(m.match_arrays_many([m.device_corpus(docs, shard=False)]))
+        cm = m.cascade_model
+        if "engine" not in cfg:
+            h = m.device_corpus(docs, shard=True)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = m._records_batch_sharded_dispatch([h] * 2, cm)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            m._records_batch_sharded_finish(*pending, True)
+    for got in res[0] + res[1]:
+        _assert_arrays_equal(got, res[2][0])
+    assert res[2][0]["doc"].shape[0] >= 400

@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -122,6 +123,25 @@ m = port.Matcher([{"value": p} for p in pats],
 res = m.match_arrays([doc])
 assert isinstance(m.kgram_model, KgramDfaModel) and m.kgram_model.k >= 2
 assert list(zip(res["pos"].tolist(), res["pattern"].tolist())) == want
+# the data mesh: a sharded handle on 4 shards of the CPU, the dry run,
+# and the two-process worker's module
+import importlib.util
+from php_aho_corasick_tpu_torch.parallel import dryrun, mesh, shard_scan
+pats_s = [b"abcdefabcdef", b"cdefabcdefab", b"xy"]
+ms = port.Matcher([{"value": p} for p in pats_s],
+                  port.ScanConfig(engine="cascade", chunk_len=256),
+                  device="cpu")
+doc_s = b"ab" * 300 + pats_s[0] + b"c" * 50 + b"xy" + b"d" * 400
+with mesh.local_shards(4):
+    hs = ms.device_corpus([doc_s, doc_s[::-1]], shard=True)
+    res = ms.match_arrays_many([hs])[0]
+    assert len(hs.mesh) == 4 and len(hs.chunks_d) == 4
+    assert sorted(zip(res["doc"].tolist(), res["pos"].tolist(),
+                      res["pattern"].tolist())) == [(0, 612, 0), (0, 664, 2)]
+dryrun.dryrun_multichip(2, "cpu")
+spec = importlib.util.spec_from_file_location(
+    "torch_distributed_worker", "tests/test_torch_distributed.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 CascadeModel.records_ok = property(lambda self: False)
 for cfg in (dict(), dict(verify_kgram_bytes=0),
             dict(table_format="compressed")):
@@ -170,3 +190,27 @@ def test_default_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         port.Matcher(device="cuda")
     assert port.Matcher(device="cpu").device.type == "cpu"
+
+
+def test_sharded_cuda_needs_card(monkeypatch):
+    """A sharded entry point on CUDA raises with no card; it never carries
+    on on the CPU."""
+    from php_aho_corasick_tpu_torch.parallel import dryrun, mesh, shard_scan
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.data_mesh()
+    with mesh.local_shards(2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.data_mesh(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.DataMesh([torch.device("cuda", 0)] * 2)
+    with pytest.raises(RuntimeError):
+        dryrun.dryrun_multichip(2, "cuda")
+    rows = np.zeros((4, 8), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_scan.sharded_scan_compact(
+            mesh.DataMesh(["cuda:0", "cuda:0"]), {}, rows, None,
+            np.zeros(4, np.int32), np.zeros(4, np.int32), n_classes=1,
+            capacity=4,
+        )

@@ -31,6 +31,7 @@ from php_aho_corasick_tpu_torch.models.dense_dfa import (  # noqa: E402
 from php_aho_corasick_tpu_torch.ops.filter_torch import (  # noqa: E402
     fused_phase_grid,
 )
+from php_aho_corasick_tpu_torch.parallel.mesh import local_shards  # noqa: E402
 
 CFG = dict(backend="device", engine="cascade", bloom_impl="pallas_vmem",
            auto_shard=False, chunk_len=1024)
@@ -205,18 +206,25 @@ def test_records_chain_on_carried_tables(stage2):
     assert int(got[3]) > 0
 
 
-def test_unported_modes_raise():
-    """The sharded corpus raises naming its ROADMAP item.  The modes once
-    pinned here as raising now equal the JAX package's records: the take
-    filter (``bloom_impl="take"``), the k-gram engine and the compressed
-    table (their JAX side jitted: its op-by-op walks cost more than XLA's
-    compile)."""
+def test_once_unported_modes_match_jax():
+    """The modes once pinned here as raising now equal the JAX package's
+    records: the take filter (``bloom_impl="take"``), the sharded corpus
+    (``device_corpus(docs, shard=True)`` over as many shards of the CPU
+    as the JAX package's mesh has devices), the k-gram engine and the
+    compressed table (their JAX side jitted: its op-by-op walks cost more
+    than XLA's compile, and its sharded scan runs only jitted)."""
     pats, docs = _mixed_case(0)
     mj, m = _matchers(pats, bloom_impl="take")
     assert m.cascade_model.bloom_impl() == "take"
     _assert_same(mj.match_arrays(docs), m.match_arrays(docs))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        m.device_corpus(docs, shard=True)
+    with jax.disable_jit(False):
+        hj = mj.device_corpus(docs, shard=True)
+        with local_shards(len(jax.devices())):
+            ht = m.device_corpus(docs, shard=True)
+        assert ht.mesh is not None
+        assert len(ht.mesh) == int(hj.mesh.devices.size) > 1
+        _assert_same(mj.match_arrays_many([hj])[0],
+                     m.match_arrays_many([ht])[0])
     with jax.disable_jit(False):
         mj, m = _matchers(pats, engine="kgram")
         assert m._pick_engine(sum(map(len, docs))) == "kgram"
