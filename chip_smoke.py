@@ -61,11 +61,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to the flat take filter and still serving;
 9. the compressed table, the flagged-window verify and the k-gram engine:
    (a) signature-byte, ``benchmarks/bench_signatures.py --alphabet
-   byte``'s draw cut to 100,000 of its 1M needles (the numpy builder's
-   time: 12-15 s of host time, minutes at 1M), 16 random bytes each, at
-   the default config: finalize to the compressed table (the dense one
-   would pass ``dense_table_max_bytes``), its 64 MiB corpus of random
-   bytes in 1 MiB documents with 200 needles planted,
+   byte``'s draw at its full 1M needles, 16 random bytes each, built by
+   the native (C++) builder at the default config: finalize to the
+   compressed table (the dense one would pass ``dense_table_max_bytes``),
+   build, plan and upload seconds and the card's peak memory printed, its
+   64 MiB corpus of random bytes in 1 MiB documents with 200 needles
+   planted,
    ``match_arrays_many([handle] * 12)`` timed, counted, traced and
    sync-checked, every planted needle found, 8 MiB equal to a host walk
    through ``CompressedAutomaton.lookup``;
@@ -113,8 +114,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``cuda:0``, the script run again with ``--worker``) over 16 MiB with
    needles planted at 1e-5, both equal to the single-process records.  Each kernel's first launch of the phase, at a
    shard's shape, is held against its plain version;
-12. one JSON line of kernel timings, the card's name and power limit, and
+12. the remaining surface: (a) the headline set built by the native and
+   the numpy builder, bit-equal tables, the library under
+   ``build/torch_kernels/``; (b) ``utils.serialization``: the 1M
+   signature-byte matcher saved and loaded onto the card (file size, save
+   and load seconds beside the native build's), its 64 MiB served equal to
+   9a's records, and a dense round trip of the headline matcher served
+   over phase 4's planted handle equal to its records; (c)
+   ``utils.profiling.trace`` around one headline pass (the trace names the
+   fused kernel) and ``sync``; (d) the command line in subprocesses on the
+   card (``scan``, ``build``, ``info``, ``replace``) with the tile probe
+   set over 1 MiB of the base documents, equal to the same calls in
+   process; (e) the three examples at their default sizes.  The kernels
+   each part launches are held against their plain versions at its shapes
+   (the tile kernel of (d) in process, the fused kernel of (e), the
+   loaded matcher's ``bloom_hit`` in (b));
+13. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
+
+Phases 9c and 11c run on the 1M-needle matcher of 9a too.
 
 Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 1-8, 2^12-2^15-word
 tables, some over the shared-memory budget, ragged code counts down to 1,
@@ -143,8 +161,8 @@ ROWS_LEN = 13  # needle bytes of the rows path (plan stride 5)
 ANCHORED_LEN, ANCHORED_REPS, ANCHORED_PASSES = 7, 16, 3  # 32 MiB
 TAKE_NEEDLES = 16384  # the smallest measured set with no bank bloom is 8192
 FORCE_TAKE_NEEDLE, FORCE_TAKE_REPS = b"abcdefabcdefabcd", 70000
-# bench_signatures.py --alphabet byte at 1/10 of its needles
-SIG_NEEDLES, SIG_LEN, SIG_MIB, SIG_DOC = 100_000, 16, 64, 1 << 20
+# bench_signatures.py --alphabet byte at its full 1M needles
+SIG_NEEDLES, SIG_LEN, SIG_MIB, SIG_DOC = 1_000_000, 16, 64, 1 << 20
 KGRAM_PASSES = 3
 # phase 10: fresh-corpus passes, stream batches, feed sizes, warmup shape
 FRESH_PASSES, STREAM_BATCHES = 3, 6
@@ -1442,9 +1460,8 @@ def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
 
 
 def signature_workload():
-    """``benchmarks/bench_signatures.py --alphabet byte``'s draw, cut to
-    ``SIG_NEEDLES`` of its 1M needles (the cut is the numpy builder's
-    time: 12-15 s of host time against minutes at 1M): 16-byte needles of
+    """``benchmarks/bench_signatures.py --alphabet byte``'s draw of
+    ``SIG_NEEDLES`` (1M) needles: 16-byte needles of
     random bytes from ``default_rng(7)`` (sorted: a set's order varies
     from run to run), then ``SIG_MIB`` MiB of random bytes from the same
     generator in 1 MiB documents, a needle planted every 1/200 of the
@@ -1507,27 +1524,31 @@ def launched_of(kernels):
 
 
 def phase_signature_path(torch, card, kernels):
-    """Phase 9a and 9c: the 100,000-needle byte signature set, whose dense
+    """Phase 9a and 9c: the 1M-needle byte signature set, whose dense
     table would exceed ``dense_table_max_bytes``, at the default config:
-    finalize to the compressed table, the sampled cascade over 64 MiB
+    the native builder's compressed table, the sampled cascade over 64 MiB
     (``match_arrays_many`` timed, counted, traced, sync-checked), every
     planted needle found, 8 MiB equal to a host walk through
     ``CompressedAutomaton.lookup``, ``bloom_hit`` against its plain version
     at the shapes the path gives it; then ``engine="dfa"`` (the compressed
     walk) over those 8 MiB, equal.  Returns the hand kernels' launches of
-    the timed batch and ``bloom_hit``'s largest difference from its plain
-    version."""
+    the timed batch, ``bloom_hit``'s largest difference from its plain
+    version, the matcher with its documents and records, and the build
+    seconds."""
     import dataclasses
 
-    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig, native
 
+    assert native.available(), "no native library"
     needles, docs2d, planted = signature_workload()
     docs = [row.tobytes() for row in docs2d]
     total = docs2d.size
     cfg = ScanConfig(backend="device", chunk_len=4096)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     m = Matcher([{"id": i, "value": p} for i, p in enumerate(needles)], cfg,
                 device=DEVICE)
+    assert isinstance(m._trie, native.NativeTrieBuilder), type(m._trie)
     m.finalize()
     build_s = time.perf_counter() - t0
     auto = m.automaton
@@ -1556,7 +1577,8 @@ def phase_signature_path(torch, card, kernels):
         f"{'none' if p.vmem_words is None else p.vmem_words.shape}, win_len "
         f"{cm.win_len}, records {cm.records_ok}, records2 {cm.records2_ok}, "
         f"filter {route} ({branch}); {total / 2**20:.0f} MiB in rows "
-        f"[{B}, {L}], upload {up_s:.2f} s")
+        f"[{B}, {L}], upload {up_s:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; on {card}")
 
     def no_host_verify(*args, **kw):
         raise AssertionError("the records path reached host verify_arrays")
@@ -1666,7 +1688,7 @@ def phase_signature_path(torch, card, kernels):
         f"{h8.total_bytes / d_ms / 1e6:.3f} GB/s, rows "
         f"{tuple(h8.chunks_d.shape)}, hand kernel launches {d_launched}; on "
         f"{card}")
-    return launched, err, (m, docs, res[0], rdfa, n_slice)
+    return launched, err, (m, docs, res[0], rdfa, n_slice), build_s
 
 
 def phase_compressed_path(torch, card, kernels, head):
@@ -2088,10 +2110,11 @@ SHARDS = 4  # phase 11: shards of the one card
 TWO_PROC_REPS, TWO_PROC_SHARDS = 8, 2  # 16 MiB of planted docs; shards a rank
 
 
-def spy_first(module, name, fn):
+def spy_first(module, name, fn, also=()):
     """Run ``fn()`` with the kernel wrapper ``module.name`` wrapped so that
     its first call is kept: returns ``fn()``'s result and that call's
-    ``(args, kwargs, output)``.  The wrapper still counts its launches."""
+    ``(args, kwargs, output)``.  The wrapper still counts its launches.
+    ``also``: modules that imported the wrapper by name, wrapped too."""
     real, seen = getattr(module, name), []
 
     def spy(*args, **kw):
@@ -2104,11 +2127,13 @@ def spy_first(module, name, fn):
     spy.launches = real.launches
     if hasattr(real, "segmented_launches"):
         spy.segmented_launches = real.segmented_launches
-    setattr(module, name, spy)
+    for mod in (module, *also):
+        setattr(mod, name, spy)
     try:
         res = fn()
     finally:
-        setattr(module, name, real)
+        for mod in (module, *also):
+            setattr(mod, name, real)
         real.launches = spy.launches
         if hasattr(real, "segmented_launches"):
             real.segmented_launches = spy.segmented_launches
@@ -2116,7 +2141,7 @@ def spy_first(module, name, fn):
     return res, seen[0]
 
 
-def held_to_plain(torch, name, call):
+def held_to_plain(torch, name, call, where="at a shard's shape"):
     """A captured kernel call (``spy_first``) against its plain version on
     the same inputs: the largest difference (0; else raises)."""
     from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
@@ -2139,7 +2164,7 @@ def held_to_plain(torch, name, call):
         want = _scan_states_tile_torch(*args, n_classes=kw["n_classes"],
                                        lengths=kw.get("lengths"))
     torch.cuda.synchronize()
-    return compare(got, want, f"{name} at a shard's shape")
+    return compare(got, want, f"{name} {where}")
 
 
 def shard_split(packed, res, n_shards):
@@ -2427,6 +2452,207 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
     return launched, err
 
 
+def run_cli(*arg_lists):
+    """``python -m php_aho_corasick_tpu_torch`` once per argument list, all
+    started together on the default device; returns each one's stdout and
+    stderr, and fails on a non-zero exit.  No process outlives the call."""
+    import os
+
+    cmd = [sys.executable, "-m", "php_aho_corasick_tpu_torch"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(cmd + args, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for args in arg_lists]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for args, p, (_, err) in zip(arg_lists, procs, outs):
+        assert p.returncode == 0, f"cli {args[0]} exited {p.returncode}: {err}"
+    return outs
+
+
+def phase_remaining_surface(torch, card, kernels, head, planted, sig,
+                            sig_build_s):
+    """Phase 12: the native builder beside the numpy one, matcher files,
+    the profiling hooks, the command line and the examples on the card
+    (the module docstring's item 12).  Returns the hand kernels' launches
+    of the phase and their largest difference from their plain versions
+    at its shapes."""
+    import glob
+    import math
+    import os
+    import shutil
+
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig, native
+    from php_aho_corasick_tpu_torch.examples import (
+        basic, bulk_scan, serving_loop,
+    )
+    from php_aho_corasick_tpu_torch.models import tile_dfa
+    from php_aho_corasick_tpu_torch.ops import filter_cuda, scan_cuda
+    from php_aho_corasick_tpu_torch.utils import profiling
+    from php_aho_corasick_tpu_torch.utils.serialization import (
+        load_matcher, save_matcher,
+    )
+
+    needles, m, h, warm, base = head
+    hd, rd = planted
+    ms_, sdocs, res_sig = sig[:3]
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    err = 0
+
+    # (a) the headline set by both builders
+    specs = [{"id": i, "value": p} for i, p in enumerate(needles)]
+    times, autos = {}, {}
+    for prefer in (True, False):
+        t0 = time.perf_counter()
+        mb = Matcher(specs, ScanConfig(prefer_native_builder=prefer),
+                     device=DEVICE)
+        mb.finalize()
+        times[prefer] = time.perf_counter() - t0
+        autos[prefer] = mb.automaton
+        assert isinstance(mb._trie, native.NativeTrieBuilder) == prefer
+    nat, npy = autos[True], autos[False]
+    for name in ("table", "byte_class", "emit_start", "emit_pats",
+                 "pat_lens", "state_depth"):
+        a, b = getattr(nat, name), getattr(npy, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert (nat.final_start, nat.max_len) == (npy.final_start, npy.max_len)
+    lib = native.loaded_path()
+    assert os.path.dirname(lib) == os.path.join(root, "build",
+                                                "torch_kernels"), lib
+    log(f"phase 12a: the headline set's tables are bit-equal from the "
+        f"native and the numpy builder ({nat.n_states} states; build + "
+        f"finalize {times[True]:.3f} s native, {times[False]:.3f} s numpy, "
+        f"host clock); native library {os.path.relpath(lib, root)}")
+
+    counts_zeroed(kernels)
+    # (b) the 1M signature-byte matcher through a file, onto the card
+    path = os.path.join(work, "signature-byte.npz")
+    t0 = time.perf_counter()
+    save_matcher(ms_, path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    ml = load_matcher(path, ScanConfig(backend="device", chunk_len=4096),
+                      device=DEVICE)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    assert ml.device == ms_.device and ml.table_format == "compressed"
+    assert ml.automaton.n_states == ms_.automaton.n_states
+    t0 = time.perf_counter()
+    hl = ml.device_corpus(sdocs)
+    got, call = spy_first(filter_cuda, "bloom_hit",
+                          lambda: ml.match_arrays_many([hl])[0])
+    first_s = time.perf_counter() - t0
+    for key in res_sig:
+        assert np.array_equal(got[key], res_sig[key]), f"loaded sig {key}"
+    err = max(err, held_to_plain(torch, "bloom_hit", call,
+                                 "at the loaded signature-byte shape"))
+    log(f"phase 12b: signature-byte ({ml.n_patterns} patterns, "
+        f"{ml.automaton.n_states} states) saved in {save_s:.2f} s to "
+        f"{size} bytes, loaded onto the card in {load_s:.2f} s (native "
+        f"build {sig_build_s:.2f} s), host clock; upload, plan and first "
+        f"pass over {len(sdocs)} MiB {first_s:.2f} s; "
+        f"{got['doc'].shape[0]} records equal to phase 9a's; on {card}")
+    del ml, hl
+    path = os.path.join(work, "headline.npz")
+    save_matcher(m, path)
+    mh = load_matcher(path, m.config, device=DEVICE)
+    assert mh.table_format == "dense"
+    got, call = spy_first(filter_cuda, "fused_sampled_extract",
+                          lambda: mh.match_arrays_many([hd])[0])
+    for key in rd:
+        assert np.array_equal(got[key], rd[key]), f"loaded headline {key}"
+    err = max(err, held_to_plain(torch, "fused_sampled_extract", call,
+                                 "at the loaded headline's shape"))
+    log(f"phase 12b: the headline matcher (dense) through a file of "
+        f"{os.path.getsize(path)} bytes: {got['doc'].shape[0]} records over "
+        f"phase 4's planted handle, equal")
+    del mh
+
+    # (c) the profiling hooks around one headline pass
+    tdir = os.path.join(work, "trace")
+    with profiling.trace(tdir):
+        out = m.match_arrays_many([h])[0]
+    for key in warm:
+        assert np.array_equal(out[key], warm[key]), f"traced pass {key}"
+    files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+    assert len(files) == 1, files
+    with open(files[0]) as f:
+        n_named = f.read().count("fused_sampled_extract")
+    assert n_named > 0, "the trace does not name the fused kernel"
+    chk = profiling.sync(h.lengths_d)
+    assert math.isfinite(chk) and chk > 0, chk
+    log(f"phase 12c: utils.profiling.trace wrote {os.path.basename(files[0])}"
+        f" ({os.path.getsize(files[0])} bytes, the fused kernel named "
+        f"{n_named} times); sync checksum {chk}")
+
+    # (d) the command line in subprocesses, on its default device
+    pats = probe_set()
+    data = base.reshape(-1)[: 1 << 20].tobytes()
+    rmap = {p: p.upper() for p in pats[::3]}
+    files = {name: os.path.join(work, name) for name in (
+        "pats.txt", "in.bin", "repl.tsv", "out.bin", "m.npz")}
+    with open(files["pats.txt"], "wb") as f:
+        f.write(b"\n".join(pats) + b"\n")
+    with open(files["in.bin"], "wb") as f:
+        f.write(data)
+    with open(files["repl.tsv"], "wb") as f:
+        f.write(b"".join(k + b"\t" + v + b"\n" for k, v in rmap.items()))
+    t0 = time.perf_counter()
+    (scan_out, scan_err), _, _ = run_cli(
+        ["scan", "-p", files["pats.txt"], "-i", files["in.bin"]],
+        ["replace", "-p", files["pats.txt"], "-r", files["repl.tsv"],
+         "-i", files["in.bin"], "-o", files["out.bin"]],
+        ["build", "-p", files["pats.txt"], "-o", files["m.npz"]])
+    (info_out, _), = run_cli(["info", "-m", files["m.npz"]])
+    cli_s = time.perf_counter() - t0
+    mi = Matcher([{"id": i, "value": p} for i, p in enumerate(pats)],
+                 ScanConfig(), device=DEVICE)
+    recs, call = spy_first(scan_cuda, "scan_states_tile",
+                           lambda: mi.match(data), also=(tile_dfa,))
+    err = max(err, held_to_plain(torch, "scan_states_tile", call,
+                                 "at the command line's shape"))
+    want = [json.dumps({"pos": r["pos"], "start": r["start_postion"],
+                        "pattern": r["value"].decode()}) for r in recs]
+    assert scan_out.splitlines() == want, "cli scan != in-process records"
+    with open(files["out.bin"], "rb") as f:
+        assert f.read() == mi.replace(data, rmap), "cli replace"
+    assert info_out == mi.describe() == load_matcher(
+        files["m.npz"], device=DEVICE).describe(), info_out
+    log(f"phase 12d: the command line on the card (4 subprocesses, "
+        f"{cli_s:.1f} s host clock): scan's {len(want)} records, replace's "
+        f"bytes and info equal the same calls in process; the in-process "
+        f"engine {mi.stats.last_engine}, the CLI's: "
+        f"{scan_err.strip().splitlines()[-1]}")
+
+    # (e) the examples at their default sizes
+    t0 = time.perf_counter()
+    basic.main()
+    counts, call = spy_first(filter_cuda, "fused_sampled_extract",
+                             bulk_scan.main)
+    assert len(counts) == 3 and min(counts) >= 1, counts
+    err = max(err, held_to_plain(torch, "fused_sampled_extract", call,
+                                 "at the bulk_scan example's shape"))
+    recs = serving_loop.main()
+    assert recs and recs[0]["keyIdx"] == 42, recs
+    log(f"phase 12e: the three examples at their default sizes in "
+        f"{time.perf_counter() - t0:.1f} s (bulk_scan's batches found "
+        f"{counts} matches)")
+    launched = launched_of(kernels)
+    shutil.rmtree(work)
+    log(f"phase 12 hand kernel launches (fused, rows, bloom_hit, tile): "
+        f"{launched}")
+    return launched, err
+
+
 def main(argv=None):
     import argparse
 
@@ -2604,7 +2830,8 @@ def main(argv=None):
 
     # 9. the compressed table, the flagged-window verify, the k-gram engine
     kernels = (fse, bwv, bh, sst)
-    sig_launched, sig_err, sig = phase_signature_path(torch, card, kernels)
+    sig_launched, sig_err, sig, sig_build_s = phase_signature_path(
+        torch, card, kernels)
     comp_launched, comp_err = phase_compressed_path(
         torch, card, kernels, (needles, m, hd, rd))
     kgram_launched = phase_kgram_path(torch, card, kernels, tile_cell)
@@ -2635,7 +2862,17 @@ def main(argv=None):
         k["launches"] += n
     err2 = max(err2, shard_err)
 
-    # 12. timings and the last line
+    # 12. the native builder, matcher files, profiling, the CLI, examples
+    rest_launched, rest_err = phase_remaining_surface(
+        torch, card, kernels, (needles, m, h, warm, base), (hd, rd), sig,
+        sig_build_s)
+    launches += rest_launched[0]
+    for k, n in zip((rows_kernel, hit_kernel, tile_kernel),
+                    rest_launched[1:]):
+        k["launches"] += n
+    err2 = max(err2, rest_err)
+
+    # 13. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",

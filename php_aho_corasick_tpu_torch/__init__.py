@@ -10,6 +10,9 @@ automata run the tile DFA kernel (``csrc/scan_states_tile.cu``); the rest
 runs the dense DFA walk.  Match records are expanded on the host.
 Chunked input goes through ``Matcher.stream`` (matches across feed
 boundaries), ``Matcher.iter_matches`` and ``Matcher.replace_stream``.
+Automata build with the C++ builder (``native/``, g++ at first use) and
+save and load in the JAX package's format (``utils/serialization.py``);
+``python -m php_aho_corasick_tpu_torch`` is the command line.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -24,7 +27,9 @@ from .compat import (
     ahocorasick_match,
 )
 from .config import DEFAULT_CONFIG, ScanConfig
-from .errors import AddStatus, AhoError
+from .core.tables import CompiledAutomaton
+from .errors import AddStatus, AhoError, AhoException, AhoWarning
+from .patterns import Pattern, PatternFormatError
 
 __version__ = "0.1.0"
 
@@ -33,9 +38,14 @@ __all__ = [
     "DeviceCorpus",
     "ScanConfig",
     "DEFAULT_CONFIG",
+    "CompiledAutomaton",
+    "Pattern",
+    "PatternFormatError",
     "StateError",
     "AddStatus",
     "AhoError",
+    "AhoException",
+    "AhoWarning",
     "ahocorasick_init",
     "ahocorasick_add_patterns",
     "ahocorasick_finalize",

@@ -184,7 +184,7 @@ class Matcher:
 
         self.config = config
         self.device = resolve_device(device)
-        self._trie = TrieBuilder(config.max_pattern_length)
+        self._trie = self._make_builder(config)
         self._patterns: List[Pattern] = []  # accepted patterns, id = index
         self._statuses: List[AddStatus] = []
         self._auto = None
@@ -205,6 +205,15 @@ class Matcher:
 
     # ------------------------------------------------------------ build
 
+    @staticmethod
+    def _make_builder(config: ScanConfig):
+        if config.prefer_native_builder:
+            from . import native
+
+            if native.available():
+                return native.NativeTrieBuilder(config.max_pattern_length)
+        return TrieBuilder(config.max_pattern_length)
+
     def add_patterns(self, specs: Sequence[Any]) -> List[AddStatus]:
         """Validate and insert a batch of pattern specs (the whole batch
         is validated before any insertion).  Returns one
@@ -216,13 +225,16 @@ class Matcher:
         if self._finalized:
             warn("Cannot add patterns to an already finalized automaton")
             raise StateError("automaton already finalized")
-        statuses = []
-        for p in parse_batch(specs):
-            st = self._trie.add(p.value)
+        pats = parse_batch(specs)
+        if hasattr(self._trie, "add_batch"):
+            # native builder: one ctypes crossing for the whole batch
+            statuses = self._trie.add_batch([p.value for p in pats])
+        else:
+            statuses = [self._trie.add(p.value) for p in pats]
+        for p, st in zip(pats, statuses):
             if st == AddStatus.SUCCESS:
                 self._patterns.append(p)
                 self._used_bytes.update(p.value)
-            statuses.append(st)
         self._statuses.extend(statuses)
         return statuses
 
@@ -240,15 +252,22 @@ class Matcher:
             from .core.automaton import compile_trie_compressed
             from .models.compressed_dfa import CompressedDfaModel
 
-            self._auto = compile_trie_compressed(
-                self._trie, [len(p) for p in self._patterns]
-            )
+            if isinstance(self._trie, TrieBuilder):
+                self._auto = compile_trie_compressed(
+                    self._trie, [len(p) for p in self._patterns]
+                )
+            else:  # native builder (signature scale)
+                self._auto = self._trie.compile_compressed()
             model_cls = CompressedDfaModel
-        else:
+        elif isinstance(self._trie, TrieBuilder):
             self._auto = compile_trie(
                 self._trie,
                 [len(p) for p in self._patterns],
                 allow_int16=self.config.allow_int16_states,
+            )
+        else:  # native builder
+            self._auto = self._trie.compile(
+                allow_int16=self.config.allow_int16_states
             )
         self._trie.closed = True
         self._model = model_cls(self._auto, self.config, self.device)
@@ -775,6 +794,11 @@ class Matcher:
         return gmap[docs_a], ends_a, pids_a
 
     def _scan_host_one(self, doc: bytes):
+        from . import native
+        from .core.tables import CompressedAutomaton
+
+        if not isinstance(self._auto, CompressedAutomaton) and native.available():
+            return native.oracle_scan(self._auto, doc)
         data = np.frombuffer(doc, dtype=np.uint8)
         return self._model.scan_host(data)
 

@@ -32,25 +32,12 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..config import ScanConfig
 from ..core.tables import CompiledAutomaton
 from ..ops.filter_torch import GRAM_BASE, KNUTH
 from ..ops.matches import PackedRows
 from ..utils import next_pow2 as _next_pow2
-
-
-def _scatter_or(words: np.ndarray, idx: np.ndarray, bits: np.ndarray) -> None:
-    """In-place ``words[idx] |= bits`` (uint32), duplicates accumulated."""
-    np.bitwise_or.at(words, idx, bits)
-
-
-def _scatter_or_bit(words: np.ndarray, slots: np.ndarray) -> None:
-    """In-place bit-bloom insert: ``words[slots >> 5] |= 1 << (slots &
-    31)`` (uint32 words)."""
-    slots = np.asarray(slots, dtype=np.int64)
-    np.bitwise_or.at(
-        words, slots >> 5, np.uint32(1) << (slots & 31).astype(np.uint32)
-    )
 
 
 def _next_cap(n: int) -> int:
@@ -288,7 +275,7 @@ def _plan_vmem_bloom(
         h = (codes ^ np.uint32(salt)) * np.uint32(KNUTH)
         rows = (h >> np.uint32(32 - log2_rows)).astype(np.int64)
         flat = words.reshape(-1)
-        _scatter_or(flat, p * N + rows, bits)
+        native.scatter_or(flat, p * N + rows, bits)
     # subword bank packing: a positional word only uses ``stride``
     # alignment bits, so up to 32/stride banks share one physical int32
     # row — the kernel's bank-select loop (its cost = physical rows)
@@ -318,7 +305,7 @@ def _plan_prefix_bloom(
     device's rolling polynomial (ops/filter_cuda._prefix_hash_select).
     Sized for <= ~1/512 fill per salt; a second salt squares the fill
     when the entry count forces a large table.  Vectorized per length
-    group + a vectorized scatter."""
+    group + native scatter."""
     l16 = min(min_long, max(4, min(len_cap, 16)))
     by_len: dict = {}
     for p in longs:
@@ -353,7 +340,7 @@ def _plan_prefix_bloom(
     for salt in salts:
         hh = (hs ^ np.uint32(salt)) * np.uint32(KNUTH)
         slots = (hh >> np.uint32(32 - log2_p)).astype(np.int64)
-        _scatter_or_bit(words, slots)
+        native.scatter_or_bit(words, slots)
     return dict(
         words=words.view(np.int32), salts=salts, log2=log2_p, len=l16
     )
@@ -435,7 +422,7 @@ def plan_cascade(
             for salt in salts:
                 h = (codes ^ np.uint32(salt)) * np.uint32(KNUTH)
                 widx = (h >> np.uint32(32 - log2_w)).astype(np.int64)
-                _scatter_or(words, widx, bits)
+                native.scatter_or(words, widx, bits)
             # exact candidate-density estimate from the built filter
             n_distinct = np.unique(codes).shape[0]
             _, hit_rate = _sampled_cost(
@@ -461,7 +448,7 @@ def plan_cascade(
                     w2 = np.zeros(1 << log2_w, dtype=np.uint32)
                     h2 = (codes2 ^ np.uint32(SALT2)) * np.uint32(KNUTH)
                     widx2 = (h2 >> np.uint32(32 - log2_w)).astype(np.int64)
-                    _scatter_or(w2, widx2, bits)
+                    native.scatter_or(w2, widx2, bits)
                     words2 = w2.view(np.int32)
                 return CascadePlan(
                     True,

@@ -94,7 +94,12 @@ class KgramDfaModel:
         """The packed table, int16 (state in 15 bits, flag in the sign
         bit) below 2^15 states with ``allow_int16_states``, else int32."""
         if self._ktable_host is None:
-            kt = build_kgram_table(self.auto, self.k)
+            from .. import native
+
+            if self.config.prefer_native_builder and native.available():
+                kt = native.kgram_build(self.auto, self.k)
+            else:
+                kt = build_kgram_table(self.auto, self.k)
             if self.auto.n_states < (1 << 15) and self.config.allow_int16_states:
                 kt = (
                     (kt & 0x7FFF) | (((kt >> 30) & 1) << 15)

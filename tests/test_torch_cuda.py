@@ -586,3 +586,31 @@ def test_sharded_card_equal_cpu(cuda, cfg):
     for got in res[0] + res[1]:
         _assert_arrays_equal(got, res[2][0])
     assert res[2][0]["doc"].shape[0] >= 400
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_format", ["dense", "compressed"])
+def test_load_matcher_on_card(cuda, tmp_path, table_format):
+    """A matcher saved on the CPU loads onto the card (its model's tables
+    there) and serves the records of the CPU matcher, through the cascade
+    and the dfa engine."""
+    from php_aho_corasick_tpu_torch.utils.serialization import (
+        load_matcher,
+        save_matcher,
+    )
+
+    specs, docs = _serving_case(160)
+    config = port.ScanConfig(chunk_len=4096, table_format=table_format)
+    m = port.Matcher(specs, config, device="cpu")
+    save_matcher(m, tmp_path / "m.npz")
+    loaded = load_matcher(tmp_path / "m.npz", config, device="cuda")
+    assert loaded.device.type == "cuda" and loaded.table_format == table_format
+    want = m.match_arrays(docs)
+    h = loaded.device_corpus(docs)
+    assert loaded._pick_engine(h.total_bytes) == "cascade"
+    _assert_arrays_equal(loaded.match_arrays(h), want)
+    loaded.config = port.ScanConfig(chunk_len=4096, engine="dfa")
+    assert loaded._pick_engine(8 * 8192) == "dfa"
+    _assert_arrays_equal(loaded.match_arrays(docs[:8]), m.match_arrays(
+        docs[:8]))
+    assert want["doc"].shape[0] >= 400

@@ -142,6 +142,36 @@ dryrun.dryrun_multichip(2, "cpu")
 spec = importlib.util.spec_from_file_location(
     "torch_distributed_worker", "tests/test_torch_distributed.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+# the remaining surface: the native builder and oracle, save and load,
+# the profiling hooks, the command line and the examples
+import contextlib, io, tempfile
+from php_aho_corasick_tpu_torch import native
+from php_aho_corasick_tpu_torch.__main__ import main as cli
+from php_aho_corasick_tpu_torch.examples import basic, bulk_scan, serving_loop
+from php_aho_corasick_tpu_torch.utils import profiling, serialization
+mn = port.Matcher([{"value": p} for p in pats_s], device="cpu")
+assert isinstance(mn._trie, native.NativeTrieBuilder)
+assert "/build/torch_kernels/libaho_native-" in native.loaded_path()
+assert [r["pos"] for r in mn.match(doc_s)] == [612, 664]  # oracle_scan
+buf = io.StringIO()
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+    serialization.save_matcher(mn, tmp + "/m.npz")
+    ml = serialization.load_matcher(tmp + "/m.npz", device="cpu")
+    assert ml.match(doc_s) == mn.match(doc_s)
+    with open(tmp + "/p.txt", "wb") as f:
+        f.write(b"\n".join(pats_s))
+    with open(tmp + "/c.bin", "wb") as f:
+        f.write(doc_s)
+    assert cli(["scan", "-p", tmp + "/p.txt", "-i", tmp + "/c.bin",
+                "--device", "cpu"]) == 0
+    with profiling.trace(tmp):
+        profiling.sync(torch.ones(3))
+    basic.main(device="cpu")
+    bulk_scan.main(device="cpu", n_needles=16, doc_bytes=2048, n_docs=2,
+                   n_batches=1)
+    serving_loop.main(device="cpu", n_signatures=64, doc_bytes=512,
+                      n_docs=4)
+assert '"pos": 612' in buf.getvalue(), buf.getvalue()
 CascadeModel.records_ok = property(lambda self: False)
 for cfg in (dict(), dict(verify_kgram_bytes=0),
             dict(table_format="compressed")):
