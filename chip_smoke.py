@@ -129,7 +129,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each part launches are held against their plain versions at its shapes
    (the tile kernel of (d) in process, the fused kernel of (e), the
    loaded matcher's ``bloom_hit`` in (b));
-13. one JSON line of kernel timings, the card's name and power limit, and
+13. a fixed slice of the randomized soak (``python -m
+   php_aho_corasick_tpu_torch.soak``, ``SOAK_CASES`` cases at
+   ``SOAK_SEED`` in a subprocess): random needle sets, documents and
+   configs through ``match_many`` against brute force, 0 mismatches, the
+   slice's scans and skips, every hand kernel launched by the cases and
+   every launch bit-equal to its plain version on the same inputs (their
+   launches and differences are added to the kernel line);
+14. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Phases 9c and 11c run on the 1M-needle matcher of 9a too.
@@ -2144,25 +2151,12 @@ def spy_first(module, name, fn, also=()):
 def held_to_plain(torch, name, call, where="at a shard's shape"):
     """A captured kernel call (``spy_first``) against its plain version on
     the same inputs: the largest difference (0; else raises)."""
-    from php_aho_corasick_tpu_torch.ops.filter_cuda import _bank_probe_torch
-    from php_aho_corasick_tpu_torch.ops.filter_torch import (
-        bloom_hit_take, u32,
-    )
-    from php_aho_corasick_tpu_torch.ops.scan_cuda import (
-        _scan_states_tile_torch,
-    )
+    from php_aho_corasick_tpu_torch.soak import plain_version
 
     args, kw, got = call
-    if name == "fused_sampled_extract":
-        want = plain(args, kw)
-    elif name == "bloom_word_vmem":
-        table, code, *rest = args
-        got, want = [got], [_bank_probe_torch(table, u32(code), *rest)]
-    elif name == "bloom_hit":
-        got, want = [got], [bloom_hit_take(*args)]
-    else:
-        want = _scan_states_tile_torch(*args, n_classes=kw["n_classes"],
-                                       lengths=kw.get("lengths"))
+    want = plain_version(name, args, kw)
+    if not isinstance(got, tuple):
+        got, want = [got], [want]
     torch.cuda.synchronize()
     return compare(got, want, f"{name} {where}")
 
@@ -2653,6 +2647,76 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     return launched, err
 
 
+SOAK_SEED, SOAK_CASES = 0, 300  # phase 13: the soak's fixed slice
+SOAK_TIMEOUT_S = 600
+#: the slice's scans and refused routes: its draws are fixed (the seed,
+#: the count and the children's hash seed), so a route that starts to
+#: refuse more cases shows here
+SOAK_SCANS = 229
+SOAK_SKIPS = {
+    "engine 'tile' requires the dense table format": 18,
+    "engine 'kgram' requires the dense table format": 24,
+    "tile engine forced but automaton exceeds the tile budget": 15,
+    "cascade engine forced but pattern set is ineligible": 14,
+}
+
+
+def phase_soak(card):
+    """Phase 13: a fixed slice of the randomized soak
+    (``php_aho_corasick_tpu_torch/soak.py``): ``SOAK_CASES`` cases at
+    ``SOAK_SEED`` in one child of the soak's parent process, each the
+    public API on random needle sets, documents and configs against brute
+    force, and every launch of a hand kernel against its plain version on
+    the same inputs.  Fails on a mismatch, a kernel launch that differs
+    from its plain version, a fault of the child, a hand kernel the cases
+    never launched, or scans and skips other than the slice's; returns
+    each kernel's launches over the phase and its largest difference from
+    the plain version, in the order fused, rows, bloom_hit, tile."""
+    import os
+    import signal
+    import tempfile
+
+    from php_aho_corasick_tpu_torch import soak
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        art = os.path.join(tmp, "soak.json")
+        t0 = time.perf_counter()
+        # its own session: on a timeout the soak's child goes too
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "php_aho_corasick_tpu_torch.soak",
+             "--seed", str(SOAK_SEED), "--total", str(SOAK_CASES),
+             "--cases", str(SOAK_CASES), "--seconds", str(SOAK_TIMEOUT_S),
+             "--device", DEVICE, "--artifact", art],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+        try:
+            out = proc.communicate(timeout=SOAK_TIMEOUT_S)[0]
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        assert proc.returncode == 0, f"soak exited {proc.returncode}:\n{out}"
+        with open(art) as f:
+            got = json.load(f)
+    for ln in out.strip().splitlines():
+        log(f"  {ln}")
+    assert got["cases"] == SOAK_CASES and got["mismatches"] == 0, got
+    assert (got["scans"], got["skips"]) == (SOAK_SCANS, SOAK_SKIPS), got
+    launched = [got["kernels"][name]["launches"] for _, name in soak.KERNELS]
+    errs = [got["kernels"][name]["max_abs_err"] for _, name in soak.KERNELS]
+    assert all(n > 0 for n in launched), got["kernels"]
+    assert errs == [0] * len(errs), got["kernels"]
+    log(f"phase 13: soak seed {SOAK_SEED}, {got['cases']} cases, 0 "
+        f"mismatches, {got['scans']} scans, skips {got['skips']}, "
+        f"{seconds:.1f} s; kernels (cases, launches): "
+        f"{ {k: (v['cases'], v['launches']) for k, v in got['kernels'].items()} }"
+        f", each launch bit-equal to its plain version; device memory "
+        f"{got['memory']}; on {card}")
+    return launched, errs
+
+
 def main(argv=None):
     import argparse
 
@@ -2872,7 +2936,16 @@ def main(argv=None):
         k["launches"] += n
     err2 = max(err2, rest_err)
 
-    # 13. timings and the last line
+    # 13. the randomized soak's fixed slice, in a subprocess
+    soak_launched, soak_err = phase_soak(card)
+    launches += soak_launched[0]
+    err2 = max(err2, soak_err[0])
+    for k, n, e in zip((rows_kernel, hit_kernel, tile_kernel),
+                       soak_launched[1:], soak_err[1:]):
+        k["launches"] += n
+        k["max_abs_err"] = max(k["max_abs_err"], e)
+
+    # 14. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",

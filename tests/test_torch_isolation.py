@@ -180,6 +180,11 @@ for cfg in (dict(), dict(verify_kgram_bytes=0),
                      device="cpu")
     res = m.match_arrays([doc])
     assert list(zip(res["pos"].tolist(), res["pattern"].tolist())) == want
+# one case of the randomized soak (a sharded dfa scan) against brute force
+from php_aho_corasick_tpu_torch import soak
+case = soak.draw_case(827307999)
+assert case["shards"] == 2 and case["config"]["engine"] == "dfa"
+assert "ok" in soak.run_case(case, "cpu")
 loaded = [n for n in sys.modules
           if n == "jax" or n.startswith("jax.")
           or n == "php_aho_corasick_tpu" or n.startswith("php_aho_corasick_tpu.")]
