@@ -136,7 +136,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    slice's scans and skips, every hand kernel launched by the cases and
    every launch bit-equal to its plain version on the same inputs (their
    launches and differences are added to the kernel line);
-14. one JSON line of kernel timings, the card's name and power limit, and
+14. the measurement tools (``python -m php_aho_corasick_tpu_torch.bench.*``,
+   each a subprocess that holds every kernel launch of one untimed pass
+   against its plain version first): the headline record and the stage
+   budget at full size, the scaling record (the sharded cascade on 4
+   shards of the card, 32 MiB), the PHP protocol (2 samples), and first
+   the hex signature set at 1M needles (the dense table, the
+   take-grouped filter on ``bloom_hit``); each record holds the reference's keys, its matches
+   (the headline's none, each density row's equal to a host walk of its
+   planted corpus, the protocol's equal to a window count of its draws,
+   all 200 signature plants), stage rows within the public pass, and
+   every held launch bit-equal to the plain version (the launches are
+   added to the kernel line);
+15. one JSON line of kernel timings, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Phases 9c and 11c run on the 1M-needle matcher of 9a too.
@@ -308,25 +320,9 @@ def compare(got, want, what):
 
 def extract_args(cm, dc):
     """The fused kernel's arguments exactly as the records chain builds
-    them for this corpus handle (ops/filter_torch.filter_hits_sampled_vmem)."""
-    from php_aho_corasick_tpu_torch.ops.filter_torch import FUSED_BLOCK_R
-
-    p = cm.plan
-    dev = cm.device_arrays
-    B, L = dc.chunks_d.shape
-    n_grid = B * (L // p.stride)
-    pb_rows = (1 << p.prefix_log2) // 32 // 128
-    mpr = min(128, max(8, -(-cm._cap_coarse // 8) * 8))
-    args = (dev["vmem_table"], dc.fused_phases(cm), None,
-            dev["min_long_len"].reshape(1, 1))
-    kw = dict(
-        salts=p.vmem_salts, log2_rows=p.vmem_log2_rows, pack=p.vmem_pack,
-        q=p.q, spc=p.stride // 4, mpr=mpr, block_r=FUSED_BLOCK_R,
-        n_grid=n_grid, l16=p.prefix_len, prefix_on=True,
-        prefix_table=dev["prefix_words"].reshape(pb_rows, 128),
-        prefix_salts=p.prefix_salts, prefix_log2=p.prefix_log2,
-    )
-    return args, kw
+    them for this corpus handle (``CascadeModel.fused_extract_args``)."""
+    return cm.fused_extract_args(dc.chunks_d, dc.lengths_d,
+                                 dc.fused_phases(cm))
 
 
 def plain(args, kw):
@@ -370,6 +366,15 @@ def bound_of(n_bytes, ops):
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", n_bytes, ops)
+
+
+def hit_bound(words, slots):
+    """``bound_of`` the bit test: each slot read and each result written
+    once (4 bytes each), and the bloom's words read once, but no more of
+    them than there are slots (a slot reads one word); ~5 operations a
+    slot (the word index, the load, the shift, the mask, the store)."""
+    return bound_of(slots.numel() * 8 + min(words.numel(), slots.numel()) * 4,
+                    5 * slots.numel())
 
 
 def assert_no_sync(torch, fn):
@@ -919,8 +924,7 @@ def phase_anchored_path(torch, base, card, bh):
     err = compare([hit], [want], "bloom_hit, anchored plan, 32 MiB")
     k_ms = cuda_ms(lambda: bh(words, slots), 50)
     p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 10)
-    b_ms, b_by, b_bytes, b_ops = bound_of(
-        slots.numel() * 8 + words.numel() * 4, 5 * slots.numel())
+    b_ms, b_by, b_bytes, b_ops = hit_bound(words, slots)
     log(f"bloom_hit at {tuple(slots.shape)} slots: {k_ms:.4f} ms (plain "
         f"bloom_hit_take {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
         f"{b_bytes} bytes, {b_ops} ops), {int(hit.sum())} set bits; on "
@@ -1122,9 +1126,11 @@ def phase_take_path(torch, base, card, head, kernels):
     words, slots = seen[0]
     k_ms = cuda_ms(lambda: bh(words, slots), 50)
     p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 50)
+    b_ms, b_by, b_bytes, b_ops = hit_bound(words, slots)
     log(f"bloom_hit at the take-grouped shape ({slots.numel()} slots, "
         f"{words.numel()} words): bit-equal to bloom_hit_take; {k_ms:.4f} ms "
-        f"(plain {p_ms:.4f} ms); on {card}")
+        f"(plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}: {b_bytes} "
+        f"bytes, {b_ops} ops); on {card}")
     planted_check(mg, needles_h, base, int(DENSITY * 1e9),
                   "take-grouped planted corpus")
     del mg, cg
@@ -1643,9 +1649,11 @@ def phase_signature_path(torch, card, kernels):
     words, slots = seen[0]
     k_ms = cuda_ms(lambda: bh(words, slots), 50)
     p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 50)
+    b_ms, b_by, b_bytes, b_ops = hit_bound(words, slots)
     log(f"bloom_hit at the signature-byte shape ({slots.numel()} slots, "
         f"{words.numel()} words): bit-equal to bloom_hit_take; {k_ms:.4f} ms "
-        f"(plain {p_ms:.4f} ms); on {card}")
+        f"(plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}: {b_bytes} "
+        f"bytes, {b_ops} ops); on {card}")
     # the batch's halves on the host clock: the dispatch of every launch,
     # the wait for the device, the fetch of the records and their expansion
     torch.cuda.synchronize()
@@ -2717,6 +2725,185 @@ def phase_soak(card):
     return launched, errs
 
 
+#: phase 14: the measurement tools, in the order they run, at these sizes
+BENCH_RUNS = (
+    # first: its native build and plan (~30 s of one host core) hide the
+    # counts of bench_expected, made in a thread meanwhile
+    ("signatures", ["--alphabet", "hex"]),
+    ("headline", []),
+    ("stage_budget", []),
+    ("scaling", ["--engine", "cascade", "--devices", "4", "--mib", "32"]),
+    ("reference_protocol", ["--samples", "2", "--naive-needles", "64"]),
+)
+BENCH_TIMEOUT_S = 300
+#: each record's keys: the reference's (``BENCH_TPU_LAST.json``,
+#: ``benchmarks/signature_last.json``, ``stage_budget_last.json``, the
+#: words ``bench_scaling.py`` and ``benchmark_reference.py`` print), then
+#: what the port adds
+_PORT = {"device", "kernels"}
+BENCH_KEYS = {
+    "headline": ({"metric", "value", "unit", "vs_baseline", "detail"},
+                 {"kernels"}),
+    "stage_budget": ({"ms", "cap_a", "cap_r", "mpr", "at"},
+                     {"spread", "launches", "busy"} | _PORT),
+    "scaling": ({"engine", "mib", "rows"},
+                {"count", "shards_of_one_card", "hash_seed"} | _PORT),
+    "reference_protocol": ({"samples", "corpus_mib", "avg_naive_s",
+                            "avg_ac_s", "ac_gibps", "speedup", "reference"},
+                           {"matches", "hash_seed"} | _PORT),
+    "signatures": ({"alphabet", "needles", "needle_len", "states",
+                    "table_mib", "table_format", "build_s", "corpus_mib",
+                    "gbps", "pass_ms", "matches", "planted",
+                    "dfa_fallback_gbps", "engine", "measured_at"},
+                   {"plan_s", "hash_seed"} | _PORT),
+}
+HEADLINE_DETAIL_KEYS = (
+    {"corpus_mib", "pass_ms", "pass_ms_spread", "public_api",
+     "caps_moved_during_timing", "e2e_gbps_via_relay", "cold_path",
+     "build_s", "engine", "states", "matches", "match_density_gbps",
+     "signature_scale", "device"},
+    {"e2e_path"},
+)
+
+
+def run_tool(name, args, art):
+    """``python -m php_aho_corasick_tpu_torch.bench.<name> args`` in its
+    own session (killed on a timeout); returns its record (the artifact,
+    equal to its last line) and its seconds."""
+    import os
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"php_aho_corasick_tpu_torch.bench.{name}",
+         *args, "--device", DEVICE, "--artifact", art],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=BENCH_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, f"{name} exited {proc.returncode}:\n{out}"
+    with open(art) as f:
+        rec = json.load(f)
+    assert json.loads(out.strip().splitlines()[-1]) == rec, name
+    return rec, time.perf_counter() - t0
+
+
+def window_count(needles, haystacks):
+    """Occurrences of distinct equal-length ``needles`` in ``haystacks``:
+    every window looked up in a set."""
+    want = set(needles)
+    n = len(next(iter(want)))
+    return sum(h[i : i + n] in want
+               for h in haystacks for i in range(len(h) - n + 1))
+
+
+def bench_expected(auto, needles, base):
+    """What phase 14's records must say, counted here without the tools'
+    scans: each headline density row's records by :func:`host_walk` over
+    its planted corpus (``bench.headline.planted`` at half the headline's
+    corpus), with its plants still whole; and the PHP protocol's matches
+    a sample by :func:`window_count` over the tool's draws."""
+    from php_aho_corasick_tpu_torch.bench import headline, reference_protocol
+
+    dens = {}
+    dens_docs = headline.corpus(base, (headline.MIB << 20) // 2)
+    for d in headline.DENSITIES:
+        docs, plants = headline.planted(dens_docs, needles, d)
+        arr = np.frombuffer(b"".join(docs), np.uint8).reshape(len(docs), -1)
+        dens[f"{d:g}"] = (host_walk(auto, arr).shape[1],
+                          headline.surviving(docs, plants))
+    samples = int(dict(BENCH_RUNS)["reference_protocol"][1])
+    rng = random.Random(reference_protocol.SEED)
+    protocol = [window_count(*reference_protocol.draw_sample(
+        rng, 2048, 16, 256, 8192)) for _ in range(samples)]
+    return {"density": dens, "protocol": protocol}
+
+
+def check_tool(name, rec, expected):
+    """Phase 14's checks of one tool's record beyond its keys."""
+    if name == "headline":
+        d = rec["detail"]
+        assert d["matches"] == 0, d
+        assert set(d) == set.union(*HEADLINE_DETAIL_KEYS), sorted(d)
+        rows = d["match_density_gbps"]
+        assert set(rows) == set(expected["density"]), rows
+        for key, (walked, whole) in expected["density"].items():
+            # later plants overwrite earlier ones; every whole one is found
+            assert rows[key]["matches"] == walked >= whole > 0, (
+                key, rows[key], walked, whole)
+    elif name == "stage_budget":
+        # records and public do the same dispatch-bound chains: a row is
+        # within the pass when its fastest run is no slower than the
+        # public row's slowest
+        pub = rec["spread"]["public"][1]
+        assert all(v > 0 for v in rec["ms"].values()), rec["ms"]
+        assert all(lo <= pub for lo, _ in rec["spread"].values()), rec
+    elif name == "signatures":
+        # the dense hex table at 1M needles plans the take-grouped filter
+        assert rec["planted"] == 200 <= rec["matches"], rec
+        assert rec["table_format"] == "dense", rec
+        assert rec["kernels"]["bloom_hit"]["launches"] > 0, rec["kernels"]
+    elif name == "scaling":
+        assert rec["shards_of_one_card"] and rec["count"] > 0, rec
+        assert [r["devices"] for r in rec["rows"]] == [1, 2, 4], rec
+    elif name == "reference_protocol":
+        got = [r["matches"] for r in rec["samples"]]
+        assert got == expected["protocol"], (got, expected["protocol"])
+        assert rec["matches"] == sum(got), rec
+
+
+def phase_bench(card, auto, needles, base):
+    """Phase 14: the five measurement tools (``BENCH_RUNS``) in
+    subprocesses; each runs its workload once with every kernel launch
+    held to the plain version before it times anything.  Fails on a tool
+    that exits non-zero, a record without the reference's keys, a miss of
+    :func:`check_tool` against :func:`bench_expected` (counted in a
+    thread while the tools run), or a held launch that differs from its
+    plain version.  Returns each kernel's launches over the tools' runs
+    and its largest difference, in the order fused, rows, bloom_hit,
+    tile."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from php_aho_corasick_tpu_torch import soak
+
+    names = [name for _, name in soak.KERNELS]
+    launched, errs = [0] * len(names), [0] * len(names)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp, \
+            ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(bench_expected, auto, needles, base)
+        for name, args in BENCH_RUNS:
+            rec, seconds = run_tool(name, args,
+                                    os.path.join(tmp, f"{name}.json"))
+            ref_keys, port_keys = BENCH_KEYS[name]
+            assert set(rec) == ref_keys | port_keys, (name, sorted(rec))
+            check_tool(name, rec, pending.result())
+            k = rec["kernels"]
+            launched = [a + k[n]["launches"] for a, n in zip(launched, names)]
+            errs = [max(a, k[n]["max_abs_err"]) for a, n in zip(errs, names)]
+            assert errs == [0] * len(names), (name, k)
+            log(f"phase 14: {name} {' '.join(args)} in {seconds:.1f} s: "
+                f"{json.dumps(rec)}")
+    expected = pending.result()
+    assert launched[0] > 0, "no tool launched the fused kernel"
+    assert launched[2] > 0, "no tool launched bloom_hit"
+    log(f"phase 14: 5 tools in {time.perf_counter() - t_all:.1f} s, every "
+        f"held launch bit-equal to its plain version; density rows' records "
+        f"equal the host walk's {expected['density']} (records, plants "
+        f"whole), the protocol's matches a sample the window count's "
+        f"{expected['protocol']}; hand kernel launches (fused, rows, "
+        f"bloom_hit, tile): {launched}; on {card}")
+    return launched, errs
+
+
 def main(argv=None):
     import argparse
 
@@ -2730,6 +2917,17 @@ def main(argv=None):
         help="run one of phase 11e's two ranks (the script starts them)")
     opts = ap.parse_args(argv)
     parent = opts.parent
+    import os
+
+    # bytecode of each module imported from here on (torch's too) is
+    # written under build/, even where the environment turns bytecode
+    # writes off, so that the phases' subprocesses (CLI, soak, tools,
+    # workers) load it instead of compiling torch again in every process
+    sys.pycache_prefix = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     import torch
 
     if opts.worker:
@@ -2945,7 +3143,17 @@ def main(argv=None):
         k["launches"] += n
         k["max_abs_err"] = max(k["max_abs_err"], e)
 
-    # 14. timings and the last line
+    # 14. the measurement tools, in subprocesses
+    bench_launched, bench_err = phase_bench(card, m.automaton, needles,
+                                            [row.tobytes() for row in base])
+    launches += bench_launched[0]
+    err2 = max(err2, bench_err[0])
+    for k, n, e in zip((rows_kernel, hit_kernel, tile_kernel),
+                       bench_launched[1:], bench_err[1:]):
+        k["launches"] += n
+        k["max_abs_err"] = max(k["max_abs_err"], e)
+
+    # 15. timings and the last line
     kernels = [{
         "name": "fused_sampled_extract",
         "route": "cuda",

@@ -146,6 +146,16 @@ _ENUM_CAP = 64_000_000
 WORDS2_MIN_ENTRIES = 1 << 20
 
 
+def _sorted_distinct(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` by one sort: some numpy versions serve integer
+    arrays by a hash path that is many times slower than a sort at
+    millions of codes."""
+    s = np.sort(a.reshape(-1))
+    if s.size:
+        s = s[np.concatenate(([True], s[1:] != s[:-1]))]
+    return s
+
+
 def _alignment_gram_codes(
     longs: Sequence[bytes], q: int, s: int, base: int = GRAM_BASE
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -319,7 +329,7 @@ def _plan_prefix_bloom(
             h = h * np.uint32(GRAM_BASE) + u[:, j]
         parts.append(h)
     hs = (
-        np.unique(np.concatenate(parts))
+        _sorted_distinct(np.concatenate(parts))
         if parts
         else np.zeros(0, np.uint32)
     )
@@ -424,7 +434,7 @@ def plan_cascade(
                 widx = (h >> np.uint32(32 - log2_w)).astype(np.int64)
                 native.scatter_or(words, widx, bits)
             # exact candidate-density estimate from the built filter
-            n_distinct = np.unique(codes).shape[0]
+            n_distinct = _sorted_distinct(codes).shape[0]
             _, hit_rate = _sampled_cost(
                 q, s, n_distinct, log2_w, len(salts),
                 max(int(auto.used_bytes.shape[0]), 1), auto.max_len,
@@ -1312,21 +1322,42 @@ class CascadeModel:
             chunks,
             lengths,
             dev["min_long_len"],
+            **self._vmem_plan_kw(cc),
+            log2_words=p.log2_words,
+            fine_salts=p.sampled_salts,
+            capacity=capacity,
+            phase_g=phase_g,
+        )
+
+    def _vmem_plan_kw(self, cap_coarse: int) -> dict:
+        """The plan's arguments to the bank-bloom filter that its fused
+        launch also takes (:func:`~..ops.filter_torch.fused_extract_args`)."""
+        p = self.plan
+        return dict(
             q=p.q,
             stride=p.stride,
             log2_rows=p.vmem_log2_rows,
             salts=p.vmem_salts,
             pack=p.vmem_pack,
-            log2_words=p.log2_words,
-            fine_salts=p.sampled_salts,
             shorts=p.shorts,
-            capacity=capacity,
-            cap_coarse=cc,
-            prefix_words=dev.get("prefix_words"),
+            cap_coarse=cap_coarse,
+            prefix_words=self.device_arrays.get("prefix_words"),
             prefix_salts=p.prefix_salts,
             prefix_log2=p.prefix_log2,
             prefix_len=p.prefix_len,
-            phase_g=phase_g,
+        )
+
+    def fused_extract_args(self, chunks, lengths, phase_g=None):
+        """``(args, kwargs)`` of the fused kernel's launch exactly as
+        :meth:`scan_hits_sampled` makes it on these rows (the bank-bloom
+        route with the alignment gate holding), at the current slot
+        capacity: for timing or checking the kernel alone."""
+        from ..ops.filter_torch import fused_extract_args
+
+        dev = self.device_arrays
+        return fused_extract_args(
+            dev["vmem_table"], chunks, lengths, dev["min_long_len"],
+            **self._vmem_plan_kw(self._cap_coarse), phase_g=phase_g,
         )
 
     def expand_hits(

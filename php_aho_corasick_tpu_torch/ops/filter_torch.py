@@ -409,6 +409,72 @@ def fused_phase_grid(
     return out.reshape(spc, R_pad + 8, 128)
 
 
+def fused_extract_args(
+    table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
+    chunks: torch.Tensor,  # [B, L] uint8, stride % 4 == 0 and stride | L
+    lengths: torch.Tensor,  # [B] int32
+    min_long_len: torch.Tensor,  # scalar int32 (0 disables the long path)
+    *,
+    q: int,
+    stride: int,
+    log2_rows: int,
+    salts: Tuple[int, ...],
+    pack: int,
+    shorts: Tuple[bytes, ...],
+    cap_coarse: int,
+    prefix_words=None,
+    prefix_salts: Tuple[int, ...] = (),
+    prefix_log2: int = 0,
+    prefix_len: int = 0,
+    phase_g=None,
+):
+    """``(args, kwargs)`` of the one
+    :func:`~.filter_cuda.fused_sampled_extract` launch that
+    :func:`filter_hits_sampled_vmem` makes on these rows (the alignment
+    gate holding): the short-start words, the phase grid (``phase_g`` when
+    given), the slots a block column keeps and the in-kernel prefix
+    refinement."""
+    B, L = chunks.shape
+    M = L // stride
+    prefix_on = (
+        prefix_words is not None
+        and stride <= 16
+        and 4 <= prefix_len <= 20
+        and bool(prefix_salts)
+    )
+    spc = stride // 4
+    block_r = FUSED_BLOCK_R
+    n_grid = B * M
+    R = -(-n_grid // 128)
+    n_blocks = max(1, -(-R // block_r))
+    R_pad = n_blocks * block_r
+    sw_g = None
+    if shorts:
+        sw = _short_start_words(chunks, lengths, shorts, stride, M)
+        sw_g = torch.zeros(R_pad * 128, dtype=torch.int32,
+                           device=chunks.device)
+        sw_g[:n_grid] = sw.reshape(-1)
+        sw_g = sw_g.reshape(R_pad, 128)
+    if phase_g is None:
+        phase_g = fused_phase_grid(chunks, spc=spc, block_r=block_r)
+    mll = min_long_len.to(torch.int32).reshape(1, 1)
+    mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
+    # small prefix blooms (<= 32 [*, 128] rows) are probed in the kernel
+    pb_rows = (1 << prefix_log2) // 32 // 128 if prefix_on else 0
+    inkernel_refine = prefix_on and 0 < pb_rows <= 32
+    kw = dict(
+        salts=tuple(salts), log2_rows=log2_rows, pack=pack, q=q, spc=spc,
+        mpr=mpr, block_r=block_r, n_grid=n_grid,
+        l16=prefix_len if prefix_on else 0, prefix_on=prefix_on,
+        prefix_table=(
+            prefix_words.reshape(pb_rows, 128) if inkernel_refine else None
+        ),
+        prefix_salts=tuple(prefix_salts) if inkernel_refine else (),
+        prefix_log2=prefix_log2 if inkernel_refine else 0,
+    )
+    return (table, phase_g, sw_g, mll), kw
+
+
 def filter_hits_sampled_vmem(
     table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
     words: torch.Tensor,  # [2**log2_words] int32 positional bloom
@@ -460,42 +526,19 @@ def filter_hits_sampled_vmem(
             capacity=capacity, cap_coarse=cap_coarse,
         )
     dev = chunks.device
-    prefix_on = (
-        prefix_words is not None
-        and stride <= 16
-        and 4 <= prefix_len <= 20
-        and bool(prefix_salts)
+    args, kw = fused_extract_args(
+        table, chunks, lengths, min_long_len,
+        q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
+        shorts=shorts, cap_coarse=cap_coarse, prefix_words=prefix_words,
+        prefix_salts=prefix_salts, prefix_log2=prefix_log2,
+        prefix_len=prefix_len, phase_g=phase_g,
     )
-    spc = stride // 4
-    block_r = FUSED_BLOCK_R
-    n_grid = B * M
+    r_s, w_s, swo_s, h_s, cnt = fused_sampled_extract(*args, **kw)
+    prefix_on = kw["prefix_on"]
+    inkernel_refine = kw["prefix_table"] is not None
+    mpr, block_r, n_grid = kw["mpr"], kw["block_r"], kw["n_grid"]
     R = -(-n_grid // 128)
     n_blocks = max(1, -(-R // block_r))
-    R_pad = n_blocks * block_r
-    sw_g = None
-    if shorts:
-        sw = _short_start_words(chunks, lengths, shorts, stride, M)
-        sw_g = torch.zeros(R_pad * 128, dtype=torch.int32, device=dev)
-        sw_g[:n_grid] = sw.reshape(-1)
-        sw_g = sw_g.reshape(R_pad, 128)
-    if phase_g is None:
-        phase_g = fused_phase_grid(chunks, spc=spc, block_r=block_r)
-    mll = min_long_len.to(torch.int32).reshape(1, 1)
-    mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
-    # small prefix blooms (<= 32 [*, 128] rows) are probed in the kernel
-    pb_rows = (1 << prefix_log2) // 32 // 128 if prefix_on else 0
-    inkernel_refine = prefix_on and 0 < pb_rows <= 32
-    r_s, w_s, swo_s, h_s, cnt = fused_sampled_extract(
-        table, phase_g, sw_g, mll,
-        salts=tuple(salts), log2_rows=log2_rows, pack=pack, q=q, spc=spc,
-        mpr=mpr, block_r=block_r, n_grid=n_grid,
-        l16=prefix_len if prefix_on else 0, prefix_on=prefix_on,
-        prefix_table=(
-            prefix_words.reshape(pb_rows, 128) if inkernel_refine else None
-        ),
-        prefix_salts=tuple(prefix_salts) if inkernel_refine else (),
-        prefix_log2=prefix_log2 if inkernel_refine else 0,
-    )
 
     if inkernel_refine:
         long_ok = w_s != 0  # refinement already applied in the kernel

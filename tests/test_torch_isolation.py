@@ -185,6 +185,17 @@ from php_aho_corasick_tpu_torch import soak
 case = soak.draw_case(827307999)
 assert case["shards"] == 2 and case["config"]["engine"] == "dfa"
 assert "ok" in soak.run_case(case, "cpu")
+# the measurement tools at tiny sizes
+from php_aho_corasick_tpu_torch.bench import (
+    headline, reference_protocol, scaling, signatures, stage_budget)
+with contextlib.redirect_stdout(io.StringIO()):
+    assert headline.run(mib=1, reps=1, device="cpu")["detail"]["matches"] == 0
+    assert signatures.run("hex", 300, 16, 1, device="cpu")["matches"] >= 190
+    assert stage_budget.run(mib=1, reps=1, device="cpu")["ms"]["public"] > 0
+    assert scaling.run(2, 1, "cascade", device="cpu")["count"] > 0
+    assert reference_protocol.run(
+        samples=1, needles=32, needle_len=4, haystacks=4, haystack_len=1024,
+        naive_needles=4, device="cpu")["matches"] > 0
 loaded = [n for n in sys.modules
           if n == "jax" or n.startswith("jax.")
           or n == "php_aho_corasick_tpu" or n.startswith("php_aho_corasick_tpu.")]

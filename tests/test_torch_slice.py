@@ -149,6 +149,29 @@ def test_headline_set_matches_jax():
     assert res_t["doc"].shape[0] >= len(docs)
 
 
+@pytest.mark.parametrize("n, high", [(0, 1), (1, 1), (500, 40),
+                                     (200_000, 2**32)])
+def test_sorted_distinct_equals_unique(n, high):
+    """The planner counts distinct codes and prefix hashes by a sort
+    (``models/cascade._sorted_distinct``): ``np.unique``'s values and
+    dtype, duplicates and empty input included."""
+    from php_aho_corasick_tpu_torch.models.cascade import _sorted_distinct
+
+    a = np.random.default_rng(n).integers(0, high, n, dtype=np.uint64)
+    a = a.astype(np.uint32)
+    got, want = _sorted_distinct(a), np.unique(a)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_headline_plan_density_equals_jax():
+    """The plan's candidate density, which counts distinct gram codes,
+    equals the JAX package's on the headline set."""
+    needles, _docs = _headline_case(64 * 1024)
+    mj, mt = _matchers(needles)
+    assert (mt.cascade_model.plan.est_cand_density
+            == mj.cascade_model.plan.est_cand_density)
+
+
 @pytest.mark.parametrize("stage2", ["in_kernel", "prefix_probe", "fine"])
 def test_records_chain_on_carried_tables(stage2):
     """The port's records chain on the JAX package's own automaton and
