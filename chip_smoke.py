@@ -53,9 +53,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    base documents, which hold only chance occurrences of them), planted
    needles at 64 MiB;
    take-grouped, the headline set with ``bloom_impl="take"`` on the
-   headline's handle, timed with its ``bloom_hit`` launches counted (the
-   prefix refinement), equal to the fused route, the kernel against
-   ``bloom_hit_take`` at the shapes this path gives it, planted needles;
+   headline's handle, timed with the launches of the grouped filter's two
+   kernels counted (``grouped_take_extract``, ``grouped_take_refine``),
+   equal to the fused route, every launch of one filter call held against
+   its plain version, each kernel timed beside its plain version and its
+   bound, the filter's device ms and operations a call on the kernels and
+   on their plain versions in turns, planted needles;
    force-take, ``b"abcdefabcdefabcd" * 70000`` (more than 128 survivors
    in every extraction group): all 70,000 records, the matcher switched
    to the flat take filter and still serving;
@@ -69,7 +72,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    planted,
    ``match_arrays_many([handle] * 12)`` timed, counted, traced and
    sync-checked, every planted needle found, 8 MiB equal to a host walk
-   through ``CompressedAutomaton.lookup``;
+   through ``CompressedAutomaton.lookup``, the grouped filter's kernels
+   held and timed as in 8;
    (b) headline-compressed, the headline set with
    ``table_format="compressed"`` on phase 4's planted 64 MiB handle (the
    fused records chain with the compressed walk), timed, equal to the dense
@@ -108,8 +112,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    holds no match);
    (c) ``match_arrays`` sharded through the tile, dfa, k-gram, anchored,
    rows, take-grouped, headline-compressed and signature-byte cells, each
-   equal to its unsharded records, the compressed table held once on the
-   card; (d) ``parallel.dryrun.dryrun_multichip(4, "cuda")``; (e) two
+   equal to its unsharded records (every grouped-kernel launch of the
+   take-grouped and signature-byte cells held against its plain
+   version), the compressed table held once on the card; (d) ``parallel.dryrun.dryrun_multichip(4, "cuda")``; (e) two
    processes on the card (``torch.distributed`` with gloo, both ranks on
    ``cuda:0``, the script run again with ``--worker``) over 16 MiB with
    needles planted at 1e-5, both equal to the single-process records.  Each kernel's first launch of the phase, at a
@@ -127,8 +132,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    set over 1 MiB of the base documents, equal to the same calls in
    process; (e) the three examples at their default sizes.  The kernels
    each part launches are held against their plain versions at its shapes
-   (the tile kernel of (d) in process, the fused kernel of (e), the
-   loaded matcher's ``bloom_hit`` in (b));
+   (the tile kernel of (d) in process, the fused kernel of (e), every
+   grouped-kernel launch of the loaded matcher in (b));
 13. a fixed slice of the randomized soak (``python -m
    php_aho_corasick_tpu_torch.soak``, ``SOAK_CASES`` cases at
    ``SOAK_SEED`` in a subprocess): random needle sets, documents and
@@ -136,13 +141,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    slice's scans and skips, every hand kernel launched by the cases and
    every launch bit-equal to its plain version on the same inputs (their
    launches and differences are added to the kernel line);
-14. the measurement tools (``python -m php_aho_corasick_tpu_torch.bench.*``,
-   each a subprocess that holds every kernel launch of one untimed pass
-   against its plain version first): the headline record and the stage
-   budget at full size, the scaling record (the sharded cascade on 4
-   shards of the card, 32 MiB), the PHP protocol (2 samples), and first
-   the hex signature set at 1M needles (the dense table, the
-   take-grouped filter on ``bloom_hit``); each record holds the reference's keys, its matches
+14. (a) the hex signature set at 1M needles in process (the signatures
+   tool's draw: the dense table, the take-grouped filter), a pass counted
+   and its plants found, the grouped filter's kernels held and timed as
+   in 8; then the measurement tools (``python -m
+   php_aho_corasick_tpu_torch.bench.*``, each a subprocess that holds
+   every kernel launch of one untimed pass against its plain version
+   first): the headline record and the stage budget at full size, the
+   scaling record (the sharded cascade on 4 shards of the card, 32 MiB),
+   the PHP protocol (2 samples), and first the hex signature set at 1M
+   needles (the grouped kernels); each record holds the reference's keys, its matches
    (the headline's none, each density row's equal to a host walk of its
    planted corpus, the protocol's equal to a window count of its draws,
    all 200 signature plants), stage rows within the public pass, and
@@ -156,10 +164,17 @@ Phases 9c and 11c run on the 1M-needle matcher of 9a too.
 Phase 2 also holds ``bloom_word_vmem`` (pack 1/2/4, k 1-8, 2^12-2^15-word
 tables, some over the shared-memory budget, ragged code counts down to 1,
 code views 1-3 elements past a 16-byte boundary, tables of zeros and of
-ones) and ``bloom_hit`` (blooms of 2^15-2^20 bits) against their plain
-versions.
+ones), ``bloom_hit`` (blooms of 2^15-2^20 bits) and the grouped take
+filter's two kernels (strides 4-32, q 1-16, 1-8 salts, the second code
+family, shorts, ``min_long_len`` 0, groups of 32-1024 rows, prefix off and
+on) against their plain versions.  The kernel line lists six kernels: the
+four that replace the JAX package's Pallas kernels and the grouped take
+filter's two, which replace XLA code of its ``filter_jax.py``.
 """
 
+import contextlib
+import functools
+import inspect
 import json
 import random
 import subprocess
@@ -189,7 +204,7 @@ STREAM_FEED, CARRY_FEED, CARRY_BYTES = 4 << 20, 1 << 20, 8 << 20
 WARMUP_DOC, WARMUP_DOCS = 1 << 20, 16
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# The four kernels do 32-bit integer work, one instruction per counted
+# The kernels do 32-bit integer work, one instruction per counted
 # operation.  The H100 SXM runs int32 operations on 64 lanes per SM (half
 # its 128 fp32 lanes; NVIDIA Hopper architecture white paper): 132 SMs x 64
 # lanes x 1.98 GHz boost clock.
@@ -574,6 +589,89 @@ def phase_bloom_random(torch, bwv, bh):
     return len(vmem_cases), err_v, len(bloom_cases), err_h
 
 
+def phase_grouped_random(torch, gte, gtr):
+    """The grouped take filter's two kernels against their plain versions
+    on random inputs made on the card from a seeded generator: strides
+    4-32 (words past a cell, alignment bit 31), q 1-16, 1-8 salts, the
+    second code family, short words, ``min_long_len`` 0, groups of 32-1024
+    rows, columns with more hits than slots, and the refinement of each
+    case's compaction with the prefix bloom off and on (1-3 salts, windows
+    of 4-20 bytes, fewer entries than hits).  Returns ``(cases,
+    max_abs_err)``."""
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        _grouped_extract_torch, _grouped_refine_torch,
+    )
+    from php_aho_corasick_tpu_torch.ops.filter_torch import (
+        blocked_nonzero, to_i32,
+    )
+
+    cases = [
+        # stride, q, k, dual, shorts, block_r, mpr, B, M, log2_words,
+        # density, mll, prefix_len, prefix salts, prefix_log2, capacity
+        (8, 9, 2, False, False, 1024, 24, 33, 256, 13, 0.02, 1, 12, 2, 15,
+         4096),
+        (12, 5, 2, True, False, 256, 8, 17, 341, 14, 0.05, 1, 4, 1, 17, 4096),
+        (16, 16, 3, False, True, 128, 16, 40, 100, 12, 0.01, 1, 16, 2, 20, 64),
+        (32, 9, 1, False, True, 512, 128, 9, 1000, 13, 0.3, 1, 20, 2, 15,
+         4096),
+        (4, 9, 2, False, False, 100, 8, 50, 64, 13, 0.05, 1, 9, 3, 16, 1024),
+        (20, 13, 4, True, True, 1000, 40, 7, 999, 15, 0.02, 1, 0, 0, 0, 4096),
+        (8, 1, 8, False, True, 32, 8, 3, 77, 10, 0.1, 1, 12, 2, 15, 512),
+        (8, 9, 2, True, True, 1024, 24, 33, 256, 13, 0.02, 0, 12, 2, 15,
+         4096),
+    ]
+    err = 0
+    for i, (stride, q, k, dual, shorts, block_r, mpr, B, M, log2_words,
+            dens, mll, plen, n_ps, plog2, cap) in enumerate(cases):
+        g = torch.Generator(device=DEVICE).manual_seed(i)
+
+        def ints(*shape):
+            return torch.randint(-(2**31), 2**31, shape, generator=g,
+                                 dtype=torch.int64, device=DEVICE
+                                 ).to(torch.int32)
+
+        def sparse(p, x):
+            u = torch.rand(x.shape, generator=g, device=DEVICE)
+            return torch.where(u < p, x, 0)
+
+        n = 1 << log2_words
+        one = torch.randint(0, stride, (n,), generator=g, device=DEVICE)
+        bits = torch.where(torch.rand(n, generator=g, device=DEVICE) < 0.5,
+                           torch.ones_like(one) << one,
+                           (ints(n).long() & ((1 << stride) - 1)) | 1)
+        words, wc = sparse(dens, to_i32(bits)), ints(B, M * stride // 4)
+        sw = sparse(0.01, ints(B, M)) if shorts else None
+        words2 = sparse(0.5, ints(n)) if dual else None
+        mll_t = torch.tensor(mll, dtype=torch.int32, device=DEVICE)
+        salts = tuple((0x9E3779B9 * (2 * j + 1)) & 0xFFFFFFFF
+                      for j in range(k))
+        spc = stride // 4
+        got = gte(words, wc, sw, mll_t, words2, q=q, spc=spc,
+                  log2_words=log2_words, salts=salts, mpr=mpr,
+                  block_r=block_r)
+        want = _grouped_extract_torch(words, wc, sw, mll_t, words2, q, spc,
+                                      log2_words, salts, mpr, block_r)
+        torch.cuda.synchronize()
+        what = (f"grouped_take_extract stride {stride} q {q} k {k} words2 "
+                f"{dual} shorts {shorts} block_r {block_r} mpr {mpr}")
+        err = max(err, compare(got, want, what))
+        assert int(got[4].sum()) > 0, what
+        r_s, w_s, swo_s = got[:3]
+        slot, _ = blocked_nonzero(
+            ((r_s >= 0) & ((w_s | swo_s) != 0)).reshape(-1), cap)
+        pw = ints((1 << plog2) // 32) if plen else None
+        kw = dict(mpr=mpr, block_r=block_r, spc=spc,
+                  prefix_salts=salts[:n_ps], prefix_log2=plog2,
+                  prefix_len=plen)
+        got = gtr(slot, r_s, w_s, swo_s, wc, pw, **kw)
+        want = _grouped_refine_torch(slot, r_s, w_s, swo_s, wc, pw,
+                                     *kw.values())
+        torch.cuda.synchronize()
+        err = max(err, compare(got, want, f"grouped_take_refine after "
+                                          f"{what}, prefix_len {plen}"))
+    return len(cases), err
+
+
 def trace_breakdown(torch, run, card, passes=2, top=8):
     """Device time by kernel over ``passes`` traced passes (``run(passes)``
     runs them; torch.profiler), and the device's busy share of the traced
@@ -951,39 +1049,203 @@ def counts_zeroed(kernels):
         k.launches = 0
 
 
-def spy_bloom_hit(fn):
-    """Run ``fn()`` with ``ops/filter_cuda.bloom_hit`` wrapped so that the
-    ``(words, slots)`` of every call are kept; returns them."""
+#: the grouped take filter's kernels, in the order of ``kernels`` after
+#: the four of the JAX package's Pallas kernels
+GROUPED = ("grouped_take_extract", "grouped_take_refine")
+#: the order of ``kernels`` and of every list of launch counts
+KERNEL_ORDER = "fused, rows, bloom_hit, tile, extract, refine"
+
+
+def spy_calls(names, fn):
+    """Run ``fn()`` with the ``ops/filter_cuda`` wrappers ``names`` wrapped
+    so that every call's ``(args, kwargs, output)`` is kept; returns
+    ``fn()``'s result and the calls by name.  The wrappers still count
+    their launches (on the module's name, which the spy holds meanwhile)."""
     from php_aho_corasick_tpu_torch.ops import filter_cuda
 
-    real, seen = filter_cuda.bloom_hit, []
+    real = {n: getattr(filter_cuda, n) for n in names}
+    seen = {n: [] for n in names}
 
-    def spy(words, slots):
-        seen.append((words, slots))
-        return real(words, slots)
+    def spy_of(name):
+        @functools.wraps(real[name])
+        def spy(*args, **kw):
+            out = real[name](*args, **kw)
+            seen[name].append((args, kw, out))
+            return out
 
-    # the wrapper counts its launches on the module's ``bloom_hit``
-    spy.launches = real.launches
-    filter_cuda.bloom_hit = spy
+        spy.launches = real[name].launches
+        return spy
+
+    spies = {n: spy_of(n) for n in names}
+    for n, spy in spies.items():
+        setattr(filter_cuda, n, spy)
     try:
-        fn()
+        res = fn()
     finally:
-        filter_cuda.bloom_hit = real
-        real.launches = spy.launches
-    return seen
+        for n in names:
+            setattr(filter_cuda, n, real[n])
+            real[n].launches = spies[n].launches
+    return res, seen
+
+
+@contextlib.contextmanager
+def plain_grouped():
+    """The grouped take filter on its kernels' plain versions: the two
+    ``ops/filter_cuda`` wrappers replaced by what they compute on a CPU
+    tensor, run on the card's tensors (the filter before its kernels)."""
+    from php_aho_corasick_tpu_torch.ops import filter_cuda
+    from php_aho_corasick_tpu_torch.soak import plain_version
+
+    real = {n: getattr(filter_cuda, n) for n in GROUPED}
+
+    def plain_of(name):
+        @functools.wraps(real[name])  # plain_version binds its signature
+        def run(*args, **kw):
+            return plain_version(name, args, kw)
+
+        return run
+
+    for n in GROUPED:
+        setattr(filter_cuda, n, plain_of(n))
+    try:
+        yield
+    finally:
+        for n in GROUPED:
+            setattr(filter_cuda, n, real[n])
+
+
+def device_ops(torch, run):
+    """Device operations (kernels, copies, fills) and their summed device
+    ms in one call of ``run``, by ``torch.profiler`` after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n, busy = 0, 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            busy += (t if t is not None
+                     else getattr(e, "self_cuda_time_total", 0)) / 1e3
+            n += e.count
+    return n, busy
+
+
+def bound_args(name, args, kw):
+    """A wrapper call's arguments by parameter name."""
+    from php_aho_corasick_tpu_torch.ops import filter_cuda
+
+    b = inspect.signature(getattr(filter_cuda, name)).bind(*args, **kw)
+    b.apply_defaults()
+    return b.arguments
+
+
+def extract_bound(args, kw, out):
+    """``bound_of`` the grouped filter's grid stage on these inputs: the
+    corpus words and short words read once, one 4-byte bloom word a probe
+    (one a cell under the first salt where ``min_long_len`` is on, then
+    each extracted slot's re-probes: one a further salt, or one of the
+    second family), the slot arrays and counts written once; ``4
+    ceil(q/4) + 6`` operations a cell for the code (dp4a and joins) and ~6
+    a probe (xor, multiply, shift, load, AND, test).  Also returns the
+    bytes that the probes' 32-byte sectors would add."""
+    a = bound_args("grouped_take_extract", args, kw)
+    wc, sw, spc = a["wc"], a["sw"], a["spc"]
+    n_grid = wc.shape[0] * (wc.shape[1] // spc)
+    long_on = int(a["mll"].reshape(-1)[0]) > 0
+    slots = int((out[0] >= 0).sum())
+    again = 1 if a["words2"] is not None else len(a["salts"]) - 1
+    probes = (n_grid + slots * again) if long_on else 0
+    n_bytes = (wc.numel() * 4 + (sw.numel() * 4 if sw is not None else 0)
+               + 4 + 4 * probes + sum(t.numel() * 4 for t in out))
+    ops = n_grid * (4 * ((a["q"] - 1) // 4 + 1) + 6) + 6 * probes
+    return bound_of(n_bytes, ops) + (28 * probes,)
+
+
+def refine_bound(args, kw, out):
+    """``bound_of`` the grouped filter's refinement on these inputs: each
+    entry's slot number read and its three words written, three slot
+    words gathered a live entry, and for each single-alignment long word
+    its window's corpus words (``ceil(l16 / 4) + 1``) and one prefix-bloom
+    word a salt; ~12 operations an entry, ~3 a window byte and ~6 a salt.
+    Also returns the bytes that the gathers' 32-byte sectors would add."""
+    a = bound_args("grouped_take_refine", args, kw)
+    slot = a["slot"]
+    valid = slot < 2**31 - 1
+    live = int(valid.sum())
+    lw = a["w_s"].reshape(-1)[slot[valid].long()].long() & 0xFFFFFFFF
+    stride = 4 * a["spc"]
+    v = lw & ((1 << stride) - 1)
+    single = int(((v != 0) & ((v & (v - 1)) == 0)).sum()) if (
+        a["prefix_words"] is not None) else 0
+    l16, k = a["prefix_len"], len(a["prefix_salts"])
+    words = (l16 + 3) // 4 + 1
+    n_bytes = slot.numel() * 16 + live * 12 + single * 4 * (words + k)
+    ops = slot.numel() * 12 + single * (3 * l16 + 6 * k)
+    return bound_of(n_bytes, ops) + (28 * (3 * live + single * k)
+                                     + 32 * single,)
+
+
+def grouped_check(torch, card, what, run):
+    """The grouped take filter of one cell (``run()``: one filter call on
+    its handle): every launch of both kernels in that call held against
+    its plain version on the same inputs; each kernel's ms at the call's
+    shapes beside its plain version's and its bound; then the filter's
+    device ms a call (CUDA events, host queued ahead) on the kernels and
+    on their plain versions in turns (plain, kernels, kernels, plain), and
+    its device operations and their busy ms a call by the profiler.
+    Returns the largest difference and each kernel's times."""
+    from php_aho_corasick_tpu_torch.ops import filter_cuda
+    from php_aho_corasick_tpu_torch.soak import plain_version
+
+    _, calls = spy_calls(GROUPED, run)
+    err, times = 0, {}
+    for name, bound in zip(GROUPED, (extract_bound, refine_bound)):
+        assert calls[name], f"{what}: {name} was not launched"
+        for call in calls[name]:
+            err = max(err, held_to_plain(torch, name, call,
+                                         f"at the {what} shape"))
+        args, kw, out = calls[name][0]
+        fn = getattr(filter_cuda, name)
+        k_ms = cuda_ms(lambda: fn(*args, **kw), 50)
+        p_ms = cuda_ms(lambda: plain_version(name, args, kw), 5)
+        b_ms, b_by, b_bytes, b_ops, sectors = bound(args, kw, out)
+        shapes = [tuple(t.shape) for t in args if hasattr(t, "shape")]
+        log(f"{name} at the {what} shape ({len(calls[name])} call(s) a "
+            f"filter call, inputs {shapes}): bit-equal to its plain "
+            f"version; {k_ms:.4f} ms (plain {p_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms by {b_by}: {b_bytes} bytes, {b_ops} ops; the "
+            f"random gathers' 32-byte sectors add {sectors} bytes, "
+            f"{sectors / HBM_BYTES_PER_S * 1e3:.6f} ms); on {card}")
+        times[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+    turns = []
+    for who in ("plain", "kernels", "kernels", "plain"):
+        with plain_grouped() if who == "plain" else contextlib.nullcontext():
+            turns.append(f"{who} {cuda_ms(run, 5):.3f}")
+    n_k, busy_k = device_ops(torch, run)
+    with plain_grouped():
+        n_p, busy_p = device_ops(torch, run)
+    log(f"grouped take filter at the {what} shape, device ms a call in "
+        f"turns: {', '.join(turns)}; device operations a call: kernels "
+        f"{n_k} ({busy_k:.3f} ms busy), plain {n_p} ({busy_p:.3f} ms "
+        f"busy); on {card}")
+    return err, times
 
 
 def phase_take_path(torch, base, card, head, kernels):
-    """The sampled take filters (no hand kernel of their own; the grouped
-    one's prefix refinement probes through ``bloom_hit``): take-flat at
-    16,384 needles, take-grouped on the headline's handle, force-take.
-    ``head`` is the headline's ``(needles, handle, warm result)``.
-    Returns the ``bloom_hit`` launches of the grouped run and the
-    kernel's largest difference from ``bloom_hit_take`` at its shapes."""
+    """The sampled take filters: take-flat at 16,384 needles (no hand
+    kernel), take-grouped on the headline's handle (the grouped filter's
+    two kernels), force-take.  ``head`` is the headline's ``(needles,
+    handle, warm result)``.  Returns the hand kernels' launches of the
+    grouped run, the grouped kernels' largest difference from their plain
+    versions and their times at its shapes (:func:`grouped_check`)."""
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
-    from php_aho_corasick_tpu_torch.ops.filter_torch import bloom_hit_take
 
-    fse, bwv, bh, sst = kernels
     docs = [row.tobytes() for row in base] * HEADLINE_REPS
     total = sum(map(len, docs))
 
@@ -1085,10 +1347,9 @@ def phase_take_path(torch, base, card, head, kernels):
     ms, res, wall = timed_passes(
         torch, lambda: mg.match_arrays_many([hh] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
-    hit_launches = bh.launches
-    others = [k.launches for k in (fse, bwv, sst)]
-    assert hit_launches >= BATCH, f"bloom_hit launched {hit_launches} times"
-    assert not any(others), f"take-grouped launched other kernels: {others}"
+    launched = launched_of(kernels)
+    assert min(launched[4:]) >= BATCH, f"grouped kernels: {launched}"
+    assert not any(launched[:4]), f"take-grouped launched others: {launched}"
     assert mg.stats.records_fallbacks == fallbacks, "batch fell back"
     assert cg.take_branch(L) == "grouped"
     for r in res:
@@ -1100,8 +1361,8 @@ def phase_take_path(torch, base, card, head, kernels):
     log(f"take-grouped: match_arrays_many([headline handle] * {BATCH}) "
         f"with bloom_impl='take': {ms:.3f} ms/pass by CUDA events "
         f"({wall:.3f} ms wall), {res[0]['doc'].shape[0]} matches/pass "
-        f"(equal to the fused route), bloom_hit launches {hit_launches}, "
-        f"group size {cg.take_group_block_r()}, slot capacity "
+        f"(equal to the fused route), hand kernel launches ({KERNEL_ORDER}) "
+        f"{launched}, group size {cg.take_group_block_r()}, slot capacity "
         f"{cg._cap_coarse}; device time of the grouped filter {f_ms:.3f} "
         f"ms; on {card}")
     trace_breakdown(torch, lambda n: mg.match_arrays_many([hh] * n), card)
@@ -1110,27 +1371,11 @@ def phase_take_path(torch, base, card, head, kernels):
     mg._records_batch_finish(*pending, True)
     log("sync check (set_sync_debug_mode='error'): no host sync in the "
         "take-grouped dispatch")
-    # the kernel at the shapes this path gives it: the prefix bit test of
-    # the compacted hits, one call a prefix salt
-    seen = spy_bloom_hit(lambda: cg.scan_hits_sampled(
-        hh.chunks_d, hh.lengths_d, cap))
-    assert len(seen) == len(cg.plan.prefix_salts), len(seen)
-    err = 0
-    for words, slots in seen:
-        got = bh(words, slots)
-        want = bloom_hit_take(words, slots)
-        torch.cuda.synchronize()
-        err = max(err, compare([got], [want],
-                               f"bloom_hit, take-grouped, {slots.numel()} "
-                               f"slots"))
-    words, slots = seen[0]
-    k_ms = cuda_ms(lambda: bh(words, slots), 50)
-    p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 50)
-    b_ms, b_by, b_bytes, b_ops = hit_bound(words, slots)
-    log(f"bloom_hit at the take-grouped shape ({slots.numel()} slots, "
-        f"{words.numel()} words): bit-equal to bloom_hit_take; {k_ms:.4f} ms "
-        f"(plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}: {b_bytes} "
-        f"bytes, {b_ops} ops); on {card}")
+    # both kernels at the shapes this path gives them, against their plain
+    # versions; the filter a call on the kernels and on the plain versions
+    err, times = grouped_check(
+        torch, card, "take-grouped",
+        lambda: cg.scan_hits_sampled(hh.chunks_d, hh.lengths_d, cap))
     planted_check(mg, needles_h, base, int(DENSITY * 1e9),
                   "take-grouped planted corpus")
     del mg, cg
@@ -1158,7 +1403,7 @@ def phase_take_path(torch, base, card, head, kernels):
         f"take filter in the first call ({first_s:.3f} s, host clock); a "
         f"second call on the same matcher equal, {ms:.3f} ms by CUDA events "
         f"({wall:.3f} ms wall); on {card}")
-    return hit_launches, err
+    return launched, err, times
 
 
 def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
@@ -1542,12 +1787,13 @@ def phase_signature_path(torch, card, kernels):
     the native builder's compressed table, the sampled cascade over 64 MiB
     (``match_arrays_many`` timed, counted, traced, sync-checked), every
     planted needle found, 8 MiB equal to a host walk through
-    ``CompressedAutomaton.lookup``, ``bloom_hit`` against its plain version
-    at the shapes the path gives it; then ``engine="dfa"`` (the compressed
-    walk) over those 8 MiB, equal.  Returns the hand kernels' launches of
-    the timed batch, ``bloom_hit``'s largest difference from its plain
-    version, the matcher with its documents and records, and the build
-    seconds."""
+    ``CompressedAutomaton.lookup``, the grouped filter's kernels against
+    their plain versions at the shapes the path gives them
+    (:func:`grouped_check`); then ``engine="dfa"`` (the compressed walk)
+    over those 8 MiB, equal.  Returns the hand kernels' launches of the
+    timed batch, the grouped kernels' largest difference from their plain
+    versions and their times, the matcher with its documents and records,
+    and the build seconds."""
     import dataclasses
 
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig, native
@@ -1625,35 +1871,16 @@ def phase_signature_path(torch, card, kernels):
         f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
         f"({wall:.3f} ms wall), {total / ms / 1e6:.2f} GB/s; "
         f"{len(planted)}/{len(planted)} planted needles found, {n_rec} "
-        f"matches/pass; hand kernel launches (fused, bloom_word_vmem, "
-        f"bloom_hit, tile) {launched}; device time of the filter "
+        f"matches/pass; hand kernel launches ({KERNEL_ORDER}) {launched}; "
+        f"device time of the filter "
         f"{f_ms:.3f} ms, of filter + record verify {c_ms:.3f} ms (capacity "
         f"{cap_a}); peak device memory {peak} bytes; on {card}")
     trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card,
                     passes=1)
-    # bloom_hit at the shapes this path gives it (the prefix probe of the
-    # grouped filter's slots), against its plain version
-    from php_aho_corasick_tpu_torch.ops.filter_torch import bloom_hit_take
-
-    bh = kernels[2]
-    seen = spy_bloom_hit(lambda: cm.scan_hits_sampled(
-        h.chunks_d, h.lengths_d, cap_a))
-    assert len(seen) == len(p.prefix_salts), len(seen)
-    err = 0
-    for words, slots in seen:
-        got = bh(words, slots)
-        want = bloom_hit_take(words, slots)
-        torch.cuda.synchronize()
-        err = max(err, compare([got], [want], f"bloom_hit, signature-byte, "
-                                              f"{slots.numel()} slots"))
-    words, slots = seen[0]
-    k_ms = cuda_ms(lambda: bh(words, slots), 50)
-    p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 50)
-    b_ms, b_by, b_bytes, b_ops = hit_bound(words, slots)
-    log(f"bloom_hit at the signature-byte shape ({slots.numel()} slots, "
-        f"{words.numel()} words): bit-equal to bloom_hit_take; {k_ms:.4f} ms "
-        f"(plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}: {b_bytes} "
-        f"bytes, {b_ops} ops); on {card}")
+    # the grouped filter's kernels at the shapes this path gives them
+    err, times = grouped_check(
+        torch, card, "signature-byte",
+        lambda: cm.scan_hits_sampled(h.chunks_d, h.lengths_d, cap_a))
     # the batch's halves on the host clock: the dispatch of every launch,
     # the wait for the device, the fetch of the records and their expansion
     torch.cuda.synchronize()
@@ -1703,7 +1930,8 @@ def phase_signature_path(torch, card, kernels):
         f"{h8.total_bytes / d_ms / 1e6:.3f} GB/s, rows "
         f"{tuple(h8.chunks_d.shape)}, hand kernel launches {d_launched}; on "
         f"{card}")
-    return launched, err, (m, docs, res[0], rdfa, n_slice), build_s
+    assert min(launched[4:]) >= BATCH, f"grouped kernels: {launched}"
+    return launched, err, times, (m, docs, res[0], rdfa, n_slice), build_s
 
 
 def phase_compressed_path(torch, card, kernels, head):
@@ -2106,7 +2334,7 @@ def phase_serving_path(torch, card, kernels, head, tile_cell, base):
         f"on {card}")
     launched = launched_of(kernels)
     assert launched[0] > 0, f"fused kernel launched {launched[0]} times"
-    log(f"phase 10 hand kernel launches (fused, rows, bloom_hit, tile): "
+    log(f"phase 10 hand kernel launches ({KERNEL_ORDER}): "
         f"{launched}")
 
     # the fused kernel at a fresh slice's shape, against its plain version
@@ -2365,18 +2593,28 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
             t0 = time.perf_counter()
             if spy is None:
                 got = mm.match_arrays(hh)
+            elif spy[1] == GROUPED:
+                # every launch of the grouped kernels, a call a shard
+                got, calls = spy_calls(GROUPED, lambda: mm.match_arrays(hh))
+                for n in GROUPED:
+                    assert len(calls[n]) >= len(hh.mesh), (n, len(calls[n]))
+                    for call in calls[n]:
+                        cell.err = max(cell.err,
+                                       held_to_plain(torch, n, call))
             else:
                 got, call = spy_first(spy[0], spy[1],
                                       lambda: mm.match_arrays(hh))
                 cell.err = max(cell.err, held_to_plain(torch, spy[1], call))
             wall = (time.perf_counter() - t0) * 1e3
             same_arrays(got, want, f"sharded {name}")
+            held = ("both grouped kernels (every launch)"
+                    if spy and spy[1] == GROUPED else spy and spy[1])
             log(f"phase 11c: {name} sharded "
                 f"({mm._pick_engine(hh.total_bytes)}, "
                 f"{hh.total_bytes / 2**20:.0f} MiB, {len(hh.mesh)} shards): "
                 f"{got['doc'].shape[0]} records equal to unsharded; "
                 f"{wall:.1f} ms host clock"
-                + (f"; {spy[1]} at a shard's shape bit-equal to plain"
+                + (f"; {held} at a shard's shape bit-equal to plain"
                    if spy else ""))
             return got
 
@@ -2417,14 +2655,14 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
                                          bloom_impl="take"), device=DEVICE)
         assert mg.cascade_model.take_branch(hs.packed.row_len) == "grouped"
         cell("take-grouped", mg, hs, mg.match_arrays(h),
-             (filter_cuda, "bloom_hit"))
+             (filter_cuda, GROUPED))
         mc = Matcher(specs_h, ScanConfig(backend="device", chunk_len=4096,
                                          table_format="compressed"),
                      device=DEVICE)
         cell("headline-compressed", mc, hds, rd)
         ms_, sdocs, res_sig, res_sdfa, n_slice = sig
         cell("signature-byte", ms_, ms_.device_corpus(sdocs, shard=True),
-             res_sig)
+             res_sig, (filter_cuda, GROUPED))
         ms_.config = dataclasses.replace(ms_.config, engine="dfa")
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
@@ -2449,8 +2687,7 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
     log(f"phase 11d: {dryrun_multichip(SHARDS, DEVICE)}")
     phase_two_processes(torch, card, m)
     assert all(n > 0 for n in launched), launched
-    log(f"phase 11 hand kernel launches (fused, rows, bloom_hit, tile): "
-        f"{launched}")
+    log(f"phase 11 hand kernel launches ({KERNEL_ORDER}): {launched}")
     return launched, err
 
 
@@ -2550,13 +2787,15 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     assert ml.automaton.n_states == ms_.automaton.n_states
     t0 = time.perf_counter()
     hl = ml.device_corpus(sdocs)
-    got, call = spy_first(filter_cuda, "bloom_hit",
-                          lambda: ml.match_arrays_many([hl])[0])
+    got, calls = spy_calls(GROUPED, lambda: ml.match_arrays_many([hl])[0])
     first_s = time.perf_counter() - t0
     for key in res_sig:
         assert np.array_equal(got[key], res_sig[key]), f"loaded sig {key}"
-    err = max(err, held_to_plain(torch, "bloom_hit", call,
-                                 "at the loaded signature-byte shape"))
+    for name in GROUPED:
+        assert calls[name], f"the loaded matcher launched no {name}"
+        for call in calls[name]:
+            err = max(err, held_to_plain(
+                torch, name, call, "at the loaded signature-byte shape"))
     log(f"phase 12b: signature-byte ({ml.n_patterns} patterns, "
         f"{ml.automaton.n_states} states) saved in {save_s:.2f} s to "
         f"{size} bytes, loaded onto the card in {load_s:.2f} s (native "
@@ -2650,7 +2889,7 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
         f"{counts} matches)")
     launched = launched_of(kernels)
     shutil.rmtree(work)
-    log(f"phase 12 hand kernel launches (fused, rows, bloom_hit, tile): "
+    log(f"phase 12 hand kernel launches ({KERNEL_ORDER}): "
         f"{launched}")
     return launched, err
 
@@ -2679,7 +2918,7 @@ def phase_soak(card):
     from its plain version, a fault of the child, a hand kernel the cases
     never launched, or scans and skips other than the slice's; returns
     each kernel's launches over the phase and its largest difference from
-    the plain version, in the order fused, rows, bloom_hit, tile."""
+    the plain version, in the order of ``soak.KERNELS``."""
     import os
     import signal
     import tempfile
@@ -2723,6 +2962,60 @@ def phase_soak(card):
         f", each launch bit-equal to its plain version; device memory "
         f"{got['memory']}; on {card}")
     return launched, errs
+
+
+#: phase 14a: the signatures tool's hex draw (1M needles of 16 hex
+#: symbols, 64 MiB with 200 plants), in process
+HEX_NEEDLES, HEX_MIB = 1_000_000, 64
+
+
+def phase_hex_grouped(torch, card, kernels):
+    """Phase 14a: the hex signature set at 1M needles in this process (the
+    draw of ``bench.signatures``): the dense table and the take-grouped
+    filter; one ``match_arrays`` pass over its 64 MiB counted, its
+    records holding every plant, then the grouped filter's kernels held
+    against their plain versions and timed at its shapes
+    (:func:`grouped_check`).  Returns the pass's hand kernel launches, the
+    largest difference and the kernels' times."""
+    from php_aho_corasick_tpu_torch import Matcher, ScanConfig
+    from php_aho_corasick_tpu_torch.bench import signatures
+
+    t0 = time.perf_counter()
+    patterns, docs, n_planted = signatures.draws("hex", HEX_NEEDLES, 16,
+                                                 HEX_MIB)
+    m = Matcher([{"id": i, "value": p} for i, p in enumerate(patterns)],
+                ScanConfig(backend="device", chunk_len=4096), device=DEVICE)
+    m.finalize()
+    cm = m.cascade_model
+    h = m.device_corpus(docs)
+    del patterns, docs
+    L = h.chunks_d.shape[1]
+    assert m.table_format == "dense" and cm.bloom_impl() == "take"
+    assert cm.take_branch(L) == "grouped", cm.plan.reason
+    setup_s = time.perf_counter() - t0
+    m.match_arrays(h)  # the adaptive capacities settle
+    counts_zeroed(kernels)
+    res = m.match_arrays(h)
+    launched = launched_of(kernels)
+    assert min(launched[4:]) > 0 and not any(launched[:4]), launched
+    n = res["doc"].shape[0]
+    assert n >= n_planted == 200, (n, n_planted)
+    cap_a, _ = cm.learned_caps
+
+    def run():
+        return cm.scan_hits_sampled(h.chunks_d, h.lengths_d, cap_a)
+
+    log(f"phase 14a: signature-hex, {m.n_patterns} needles, plan "
+        f"{cm.plan.reason}, group size {cm.take_group_block_r()}, rows "
+        f"{tuple(h.chunks_d.shape)}; built, planned and uploaded in "
+        f"{setup_s:.1f} s (host clock); a pass {n} records ({n_planted} "
+        f"planted), hand kernel launches ({KERNEL_ORDER}) {launched}; "
+        f"device time of the grouped filter {cuda_ms(run, 5):.3f} ms; on "
+        f"{card}")
+    err, times = grouped_check(torch, card, "signature-hex", run)
+    del m, cm, h, res
+    torch.cuda.empty_cache()
+    return launched, err, times
 
 
 #: phase 14: the measurement tools, in the order they run, at these sizes
@@ -2847,7 +3140,8 @@ def check_tool(name, rec, expected):
         # the dense hex table at 1M needles plans the take-grouped filter
         assert rec["planted"] == 200 <= rec["matches"], rec
         assert rec["table_format"] == "dense", rec
-        assert rec["kernels"]["bloom_hit"]["launches"] > 0, rec["kernels"]
+        assert all(rec["kernels"][n]["launches"] > 0 for n in GROUPED), (
+            rec["kernels"])
     elif name == "scaling":
         assert rec["shards_of_one_card"] and rec["count"] > 0, rec
         assert [r["devices"] for r in rec["rows"]] == [1, 2, 4], rec
@@ -2865,8 +3159,7 @@ def phase_bench(card, auto, needles, base):
     :func:`check_tool` against :func:`bench_expected` (counted in a
     thread while the tools run), or a held launch that differs from its
     plain version.  Returns each kernel's launches over the tools' runs
-    and its largest difference, in the order fused, rows, bloom_hit,
-    tile."""
+    and its largest difference, in the order of ``soak.KERNELS``."""
     import os
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -2894,13 +3187,13 @@ def phase_bench(card, auto, needles, base):
                 f"{json.dumps(rec)}")
     expected = pending.result()
     assert launched[0] > 0, "no tool launched the fused kernel"
-    assert launched[2] > 0, "no tool launched bloom_hit"
+    assert min(launched[4:]) > 0, "no tool launched the grouped kernels"
     log(f"phase 14: 5 tools in {time.perf_counter() - t_all:.1f} s, every "
         f"held launch bit-equal to its plain version; density rows' records "
         f"equal the host walk's {expected['density']} (records, plants "
         f"whole), the protocol's matches a sample the window count's "
-        f"{expected['protocol']}; hand kernel launches (fused, rows, "
-        f"bloom_hit, tile): {launched}; on {card}")
+        f"{expected['protocol']}; hand kernel launches ({KERNEL_ORDER}): "
+        f"{launched}; on {card}")
     return launched, errs
 
 
@@ -2944,6 +3237,8 @@ def main(argv=None):
         bloom_word_vmem as bwv,
         fused_launch_shape,
         fused_sampled_extract as fse,
+        grouped_take_extract as gte,
+        grouped_take_refine as gtr,
     )
     from php_aho_corasick_tpu_torch.ops.scan_cuda import (
         _scan_states_tile_torch,
@@ -2979,6 +3274,11 @@ def main(argv=None):
     n_vmem, vmem_err, n_hit, hit_err = phase_bloom_random(torch, bwv, bh)
     log(f"kernel check 4 (bloom_word_vmem, {n_vmem} random tables; "
         f"bloom_hit, {n_hit} random blooms): bit-equal")
+    n_gr, gr_err = phase_grouped_random(torch, gte, gtr)
+    log(f"kernel check 5 (grouped_take_extract and grouped_take_refine, "
+        f"{n_gr} random cases: strides 4-32, q 1-16, 1-8 salts, the second "
+        f"code family, shorts, min_long_len 0, prefix off and on): "
+        f"bit-equal")
 
     # 3. main path setup at the headline size
     needles, base = workload()
@@ -3084,74 +3384,93 @@ def main(argv=None):
     hit_kernel = phase_anchored_path(torch, base, card, bh)
     hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], hit_err)
 
-    # 8. the take filters; bloom_hit's launches count both of its paths
-    take_hits, take_err = phase_take_path(torch, base, card, (needles, h, warm),
-                                          (fse, bwv, bh, sst))
-    hit_kernel["launches"] += take_hits
-    hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], take_err)
+    # 8. the take filters: the grouped one on its two kernels
+    kernels = (fse, bwv, bh, sst, gte, gtr)
+    take_launched, take_err, take_times = phase_take_path(
+        torch, base, card, (needles, h, warm), kernels)
+    grouped = {}
+    for name in GROUPED:
+        grouped[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": f"php_aho_corasick_tpu_torch/csrc/{name}.cu",
+            # XLA code of the reference, not a Pallas kernel: stages A and
+            # B1, and stage B2 with its bloom_hit_take bit test
+            "replaces": ("php_aho_corasick_tpu/ops/filter_jax.py:468"
+                         if name == GROUPED[0] else
+                         "php_aho_corasick_tpu/ops/filter_jax.py:534"),
+            "launches": 0,
+            "max_abs_err": max(gr_err, take_err),
+            **take_times[name],  # at the take-grouped cell's shapes
+            "library_ms": None,
+        }
+    # the five kernel lines after the fused kernel, in the order of
+    # ``kernels`` (the fused kernel's launches are counted apart)
+    others = (rows_kernel, hit_kernel, tile_kernel, *grouped.values())
+
+    def count(launched, errs=None):
+        nonlocal launches
+        launches += launched[0]
+        for k, n in zip(others, launched[1:]):
+            k["launches"] += n
+        for k, e in zip(others, (errs or [0] * 6)[1:]):
+            k["max_abs_err"] = max(k["max_abs_err"], e)
+
+    count(take_launched)
 
     # 9. the compressed table, the flagged-window verify, the k-gram engine
-    kernels = (fse, bwv, bh, sst)
-    sig_launched, sig_err, sig, sig_build_s = phase_signature_path(
+    sig_launched, sig_err, sig_times, sig, sig_build_s = phase_signature_path(
         torch, card, kernels)
     comp_launched, comp_err = phase_compressed_path(
         torch, card, kernels, (needles, m, hd, rd))
     kgram_launched = phase_kgram_path(torch, card, kernels, tile_cell)
-    hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], sig_err)
-    # each count in the order of ``kernels``: fused, rows, bloom_hit, tile
-    extra = [sum(c) for c in zip(sig_launched, comp_launched, kgram_launched)]
-    launches += extra[0]
-    for k, n in zip((rows_kernel, hit_kernel, tile_kernel), extra[1:]):
-        k["launches"] += n
+    for launched in (sig_launched, comp_launched, kgram_launched):
+        count(launched)
+    count([0] * 6, [0, 0, 0, 0, sig_err, sig_err])
 
     # 10. serving and streaming: the fresh-corpus pipeline, the cross-batch
     # double buffer, the stream's two carries, iter_matches, replace, warmup
     serve_launched, serve_err = phase_serving_path(
         torch, card, kernels, (needles, m, h, hd, rd), tile_cell, base)
-    launches += serve_launched[0]
-    for k, n in zip((rows_kernel, hit_kernel, tile_kernel),
-                    serve_launched[1:]):
-        k["launches"] += n
+    count(serve_launched)
     err2 = max(err2, serve_err)
 
     # 11. the data mesh: 4 shards of the card
     shard_launched, shard_err = phase_shard_path(
         torch, card, kernels, (needles, m, h, warm), (hd, rd), tile_cell, sig,
         base)
-    launches += shard_launched[0]
-    for k, n in zip((rows_kernel, hit_kernel, tile_kernel),
-                    shard_launched[1:]):
-        k["launches"] += n
+    count(shard_launched, [shard_err] * 6)
     err2 = max(err2, shard_err)
 
     # 12. the native builder, matcher files, profiling, the CLI, examples
     rest_launched, rest_err = phase_remaining_surface(
         torch, card, kernels, (needles, m, h, warm, base), (hd, rd), sig,
         sig_build_s)
-    launches += rest_launched[0]
-    for k, n in zip((rows_kernel, hit_kernel, tile_kernel),
-                    rest_launched[1:]):
-        k["launches"] += n
+    count(rest_launched, [rest_err] * 6)
     err2 = max(err2, rest_err)
 
     # 13. the randomized soak's fixed slice, in a subprocess
     soak_launched, soak_err = phase_soak(card)
-    launches += soak_launched[0]
+    count(soak_launched, soak_err)
     err2 = max(err2, soak_err[0])
-    for k, n, e in zip((rows_kernel, hit_kernel, tile_kernel),
-                       soak_launched[1:], soak_err[1:]):
-        k["launches"] += n
-        k["max_abs_err"] = max(k["max_abs_err"], e)
 
-    # 14. the measurement tools, in subprocesses
+    # 14. the hex signature set's grouped filter in process, then the
+    # measurement tools in subprocesses
+    del sig
+    hex_launched, hex_err, hex_times = phase_hex_grouped(torch, card, kernels)
+    count(hex_launched, [0, 0, 0, 0, hex_err, hex_err])
     bench_launched, bench_err = phase_bench(card, m.automaton, needles,
                                             [row.tobytes() for row in base])
-    launches += bench_launched[0]
+    count(bench_launched, bench_err)
     err2 = max(err2, bench_err[0])
-    for k, n, e in zip((rows_kernel, hit_kernel, tile_kernel),
-                       bench_launched[1:], bench_err[1:]):
-        k["launches"] += n
-        k["max_abs_err"] = max(k["max_abs_err"], e)
+    for name in GROUPED:
+        log(f"{name} at three shapes, ms (plain, bound): " + "; ".join(
+            f"{what} {t[name]['ms']:.4f} ({t[name]['plain_ms']:.4f}, "
+            f"{t[name]['bound_ms']:.6f} by {t[name]['bound_by']})"
+            for what, t in (("take-grouped", take_times),
+                            ("signature-byte", sig_times),
+                            ("signature-hex", hex_times)))
+            + f"; on {card}")
 
     # 15. timings and the last line
     kernels = [{
@@ -3166,7 +3485,7 @@ def main(argv=None):
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-    }, tile_kernel, rows_kernel, hit_kernel]
+    }, tile_kernel, rows_kernel, hit_kernel, *grouped.values()]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,21 @@ each of its Pallas kernels:
   slot, for the anchored candidate filter; plain version
   ``filter_torch.bloom_hit_take``.
 
+and two for the grouped take filter
+(``filter_torch.filter_hits_sampled_grouped``), whose reference is XLA
+code (``filter_jax.filter_hits_sampled_grouped``), not a Pallas kernel:
+
+- :func:`grouped_take_extract` (``csrc/grouped_take_extract.cu``), its
+  grid stage: q-gram codes from the packed corpus, the first salt's probe
+  of the positional bloom, rank extraction per (``block_r``-row group,
+  lane) column and the per-slot re-probes; plain version
+  :func:`_grouped_extract_torch`;
+- :func:`grouped_take_refine` (``csrc/grouped_take_refine.cu``), its
+  refinement of the compacted hits: the slot gathers, the window's prefix
+  hash and its bit in the prefix bit bloom (``bloom_hit``'s test, made in
+  the pass that computes the slot); plain version
+  :func:`_grouped_refine_torch`.
+
 For every stride cell of the corpus grid the fused filter
 
 1. assembles the q-gram code from the ``spc`` corpus word phases,
@@ -40,8 +55,9 @@ from typing import Optional, Tuple
 import torch
 
 from .filter_torch import (
-    FUSED_BLOCK_R, GRAM_BASE, KNUTH, U32_MASK, bloom_hit_take, mul32,
-    to_i32, u32,
+    FUSED_BLOCK_R, GRAM_BASE, GRAM_BASE2, INT32_MAX, KNUTH, SALT2, U32_MASK,
+    _planes_code, _salted_probe, _word_planes, bloom_hit_take, bloom_slots,
+    mul32, to_i32, u32,
 )
 
 
@@ -268,12 +284,12 @@ def fused_word_offsets(spc: int, phase_words: int):
 
 
 @functools.lru_cache(maxsize=64)
-def gram_weight_bytes(q: int):
+def gram_weight_bytes(q: int, base: int = GRAM_BASE):
     """``[4][4]`` dp4a operands of the q-gram code: entry ``[c][m]`` packs
-    byte ``m`` of the weights ``GRAM_BASE^(q-1-j)`` of the bytes ``j = 4c
-    .. 4c+3`` of word ``c`` (0 past ``q``), so that the code is
-    ``sum_m 2^(8m) sum_c dp4a(word_c, gb[c][m])`` mod 2^32."""
-    w = [pow(GRAM_BASE, q - 1 - j, 1 << 32) if j < q else 0
+    byte ``m`` of the weights ``base^(q-1-j)`` of the bytes ``j = 4c ..
+    4c+3`` of word ``c`` (0 past ``q``), so that the code is ``sum_m
+    2^(8m) sum_c dp4a(word_c, gb[c][m])`` mod 2^32."""
+    w = [pow(base, q - 1 - j, 1 << 32) if j < q else 0
          for j in range(16)]
     return tuple(tuple(sum(((w[4 * c + k] >> (8 * m)) & 0xFF) << (8 * k)
                            for k in range(4)) for m in range(4))
@@ -550,3 +566,291 @@ def bloom_hit(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 
 bloom_hit.launches = 0
+
+
+def grouped_blocks(n_grid: int, block_r: int) -> int:
+    """Extraction groups of the grouped take filter: ``block_r`` rows of
+    128 cells each, at least one."""
+    return max(1, -(-(-(-n_grid // 128)) // block_r))
+
+
+def _grouped_extract_torch(words, wc, sw, mll, words2, q, spc, log2_words,
+                           salts, mpr, block_r):
+    """Plain PyTorch version of :func:`grouped_take_extract` (stage A,
+    rank extraction and stage B1 of the grouped take filter); runs on any
+    device."""
+    B = wc.shape[0]
+    M = wc.shape[1] // spc
+    n_grid = B * M
+    planes = _word_planes(wc, q, spc)
+    code_u = _planes_code(planes, q, GRAM_BASE)
+    # stage A: the first salt only, over the grid
+    w = _salted_probe(words, code_u, salts[0], log2_words).reshape(-1)
+    w = torch.where(mll.reshape(()) > 0, w, 0)
+    sw = sw.reshape(-1) if sw is not None else torch.zeros_like(w)
+    n_blocks = grouped_blocks(n_grid, block_r)
+    tot = n_blocks * block_r * 128
+
+    def pad_flat(x):
+        return torch.cat([x.reshape(-1), x.new_zeros(tot - n_grid)])
+
+    # with a second-family bloom the slot carries the GRAM_BASE2 code
+    # (its probe replaces the same-code second salt, which a true code
+    # collision would always pass)
+    hv = (_planes_code(planes, q, GRAM_BASE2) if words2 is not None
+          else code_u)
+    r_s, w_s, swo_s, c_s, cnt = group_rank_extract(
+        pad_flat(w), pad_flat(sw), pad_flat(to_i32(hv)), block_r, mpr,
+        n_blocks, n_grid,
+    )
+    # stage B1: per-slot re-probes
+    c_u = u32(c_s)
+    if words2 is not None:
+        w_s = w_s & _salted_probe(words2, c_u, SALT2, log2_words)
+    else:
+        for salt in salts[1:]:
+            w_s = w_s & _salted_probe(words, c_u, salt, log2_words)
+    return r_s, w_s, swo_s, c_s, cnt
+
+
+def _grouped_refine_torch(slot, r_s, w_s, swo_s, wc, prefix_words, mpr,
+                          block_r, spc, prefix_salts, prefix_log2,
+                          prefix_len):
+    """Plain PyTorch version of :func:`grouped_take_refine` (stage B2 of
+    the grouped take filter); runs on any device."""
+    dev = r_s.device
+    nrows = r_s.shape[0]
+    blk = (torch.arange(nrows, dtype=torch.int32, device=dev) // mpr)[:, None]
+    lane = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
+    cell_s = (blk * block_r + r_s) * 128 + lane
+    safe = torch.clamp(slot, max=nrows * 128 - 1).long()
+    valid = slot < INT32_MAX
+    idx = torch.where(valid, cell_s.reshape(-1)[safe], INT32_MAX)
+    lw = torch.where(valid, w_s.reshape(-1)[safe], 0)
+    swo = torch.where(valid, swo_s.reshape(-1)[safe], 0)
+    if prefix_words is None:
+        return idx, lw, swo
+    stride = 4 * spc
+    wc_flat = wc.reshape(-1)
+    first_word = torch.where(valid, idx, 0).long() * spc
+    plane_memo = {}
+
+    def get_plane(c):
+        # clamped to the flat pack: a window reads across rows
+        if c not in plane_memo:
+            widx = torch.clamp(first_word + c, 0, wc_flat.shape[0] - 1)
+            plane_memo[c] = wc_flat[widx]
+        return plane_memo[c]
+
+    h_s = _prefix_hash_select(get_plane, lw, stride, prefix_len,
+                              _window_offsets(spc))
+    ok = None
+    for salt in prefix_salts:
+        bit = bloom_hit_take(prefix_words, bloom_slots(h_s, prefix_log2, salt))
+        ok = bit if ok is None else (ok & bit)
+    # a long word survives unless its single alignment failed the probe
+    # (alignment bits taken unsigned: bit 31 at stride 32 too)
+    keep = (prefix_refine_words(lw, ok, stride) != 0) | (swo != 0)
+    return (torch.where(keep, idx, INT32_MAX), torch.where(keep, lw, 0),
+            torch.where(keep, swo, 0))
+
+
+#: C signatures of the grouped take filter's entry points (csrc/*.cu)
+GROUPED_ARGTYPES = {
+    "grouped_take_extract_launch": [
+        _P, _LL, _I, _I,  # wc, words a row, spc, cells a row (M)
+        _P, _I, _P, _I,  # words, log2_words, salts, k
+        _P, _P, _P,  # words2, sw, mll
+        _P, _P, _I,  # gram weight bytes, second family's, q
+        _I, _I, _I, _I,  # mpr, block_r, n_blocks, n_grid
+        _P, _P, _P, _P, _P,  # r_s, w_s, swo_s, c_s, cnt
+        _P,  # stream
+    ],
+    "grouped_take_refine_launch": [
+        _P, _LL,  # slot, n
+        _P, _P, _P, _LL,  # r_s, w_s, swo_s, slot cells
+        _I, _I, _I,  # mpr, block_r, spc
+        _P, _LL,  # wc, corpus words
+        _P, _P, _I, _I,  # prefix words, prefix salts, n salts, prefix_log2
+        _P, _I,  # prefix weights, prefix_len
+        _P, _P, _P,  # idx, lw, swo
+        _P,  # stream
+    ],
+}
+
+
+def _grouped_fn(kernel):
+    from ._build import load_library
+
+    name = f"{kernel}_launch"
+    fn = getattr(load_library(kernel), name)
+    if fn.argtypes is None:
+        fn.argtypes = GROUPED_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _extract_consts(q, salts):
+    gram_b = [v for row in gram_weight_bytes(q) for v in row]
+    gram_b2 = [v for row in gram_weight_bytes(q, GRAM_BASE2) for v in row]
+    return (_u32_array(salts, len(salts)), _u32_array(gram_b, 16),
+            _u32_array(gram_b2, 16))
+
+
+def grouped_take_extract(
+    words: torch.Tensor,  # [2**log2_words] int32 positional bloom
+    wc: torch.Tensor,  # [B, M * spc] int32 packed corpus words
+    sw: Optional[torch.Tensor],  # [B, M] int32 short-start words, or None
+    mll: torch.Tensor,  # scalar int32 min_long_len (0: no long path)
+    words2: Optional[torch.Tensor] = None,  # second-family bloom, or None
+    *,
+    q: int,
+    spc: int,  # corpus words per grid cell (stride // 4)
+    log2_words: int,
+    salts: tuple,
+    mpr: int,  # slots per group column, <= 128
+    block_r: int,  # rows of 128 cells per extraction group
+) -> Tuple[torch.Tensor, ...]:
+    """The grouped take filter's grid stage.  Every grid cell's q-gram
+    code (``GRAM_BASE``, from its row's words; zeros past the row) probes
+    the positional bloom under the first salt, gated on ``mll``; a cell
+    hits where that word or its short word is nonzero.  The hits of each
+    (group ``i``, lane ``l``) column are rank-extracted: slot ``k`` (row
+    ``i * mpr + k`` of the ``[n_blocks * mpr, 128]`` slot arrays) holds the
+    ``(k+1)``-th hit in row order.  Each extracted long word is then ANDed
+    with the remaining salts' words, or, with ``words2``, with the
+    ``GRAM_BASE2`` code's word under ``SALT2``.  Returns ``(r_s, w_s,
+    swo_s, c_s, cnt)``: the hit's row in its group (-1 and zeros in an
+    empty slot), its long and short words, its code (the ``GRAM_BASE2``
+    one with ``words2``) and the hits of each column ``[n_blocks, 128]``.
+
+    A CUDA ``words`` launches ``csrc/grouped_take_extract.cu`` (counted in
+    ``grouped_take_extract.launches``); a CPU one runs
+    :func:`_grouped_extract_torch`."""
+    if not words.is_cuda:
+        return _grouped_extract_torch(words, wc, sw, mll, words2, q, spc,
+                                      log2_words, salts, mpr, block_r)
+    dev = words.device
+    B = wc.shape[0]
+    M = wc.shape[1] // spc
+    n_grid = B * M
+    n_blocks = grouped_blocks(n_grid, block_r)
+    if not (1 <= len(salts) <= 8 and 1 <= q <= 16 and 1 <= spc <= 8
+            and 5 <= log2_words <= 31 and 1 <= mpr <= 128
+            and 1 <= block_r <= 1024 and wc.shape[1] == M * spc
+            and n_blocks * block_r * 128 < 2**31):
+        raise ValueError("grouped_take_extract: unsupported configuration")
+    _check("words", words, (1 << log2_words,), dev)
+    _check("wc", wc, wc.shape, dev)
+    if wc.dim() != 2:
+        raise ValueError("wc: expected [B, M * spc]")
+    if sw is not None:
+        _check("sw", sw, (B, M), dev)
+    if words2 is not None:
+        _check("words2", words2, (1 << log2_words,), dev)
+    _check("mll", mll, mll.shape, dev)
+    if mll.numel() != 1:
+        raise ValueError("mll: expected one value")
+    slots = (n_blocks * mpr, 128)
+    r_s, w_s, swo_s, c_s = (
+        torch.empty(slots, dtype=torch.int32, device=dev) for _ in range(4))
+    cnt = torch.empty((n_blocks, 128), dtype=torch.int32, device=dev)
+    salts_a, gram_b, gram_b2 = _extract_consts(q, tuple(salts))
+    rc = _grouped_fn("grouped_take_extract")(
+        wc.data_ptr(), wc.shape[1], spc, M,
+        words.data_ptr(), log2_words, salts_a, len(salts),
+        words2.data_ptr() if words2 is not None else None,
+        sw.data_ptr() if sw is not None else None, mll.data_ptr(),
+        gram_b, gram_b2, q, mpr, block_r, n_blocks, n_grid,
+        r_s.data_ptr(), w_s.data_ptr(), swo_s.data_ptr(), c_s.data_ptr(),
+        cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"grouped_take_extract kernel launch failed: CUDA error {rc}")
+    grouped_take_extract.launches += 1
+    return r_s, w_s, swo_s, c_s, cnt
+
+
+grouped_take_extract.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _refine_consts(prefix_len, prefix_salts):
+    pref_w = [pow(GRAM_BASE, prefix_len - 1 - i, 1 << 32)
+              for i in range(prefix_len)]
+    return (_u32_array(prefix_salts, max(len(prefix_salts), 1)),
+            _u32_array(pref_w, max(prefix_len, 1)))
+
+
+def grouped_take_refine(
+    slot: torch.Tensor,  # [capacity] int32 slot numbers, INT32_MAX: none
+    r_s: torch.Tensor,  # [n_blocks * mpr, 128] int32 slot arrays
+    w_s: torch.Tensor,
+    swo_s: torch.Tensor,
+    wc: torch.Tensor,  # [B, M * spc] int32 packed corpus words
+    prefix_words: Optional[torch.Tensor] = None,  # bit bloom; None: off
+    *,
+    mpr: int,
+    block_r: int,
+    spc: int,
+    prefix_salts: tuple = (),
+    prefix_log2: int = 0,
+    prefix_len: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """The grouped take filter's refinement of its compacted hits, in slot
+    order.  Each entry gathers its slot's grid cell, long and short word
+    (``INT32_MAX`` and zeros where ``slot`` is ``INT32_MAX``).  With
+    ``prefix_words``, a long word naming a single alignment keeps it only
+    if the ``prefix_len``-byte polynomial hash of that alignment's window
+    (corpus words read from the flat pack, clamped to its ends) has its
+    bit set in the prefix bit bloom under every salt; an entry left with
+    neither word becomes ``INT32_MAX`` with zeros.  Returns ``(idx, lw,
+    swo)``.
+
+    A CUDA ``slot`` launches ``csrc/grouped_take_refine.cu`` (counted in
+    ``grouped_take_refine.launches``); a CPU one runs
+    :func:`_grouped_refine_torch`."""
+    if not slot.is_cuda:
+        return _grouped_refine_torch(slot, r_s, w_s, swo_s, wc, prefix_words,
+                                     mpr, block_r, spc, prefix_salts,
+                                     prefix_log2, prefix_len)
+    dev = slot.device
+    prefix_on = prefix_words is not None
+    if not (1 <= mpr <= 128 and 1 <= block_r <= 1024 and 1 <= spc <= 8
+            and r_s.shape[0] % mpr == 0
+            and (not prefix_on or (1 <= len(prefix_salts) <= 8
+                                   and 5 <= prefix_log2 <= 31
+                                   and 1 <= prefix_len <= 20))):
+        raise ValueError("grouped_take_refine: unsupported configuration")
+    _check("slot", slot, (slot.shape[0],), dev)
+    for name, t in (("r_s", r_s), ("w_s", w_s), ("swo_s", swo_s)):
+        _check(name, t, (r_s.shape[0], 128), dev)
+    _check("wc", wc, wc.shape, dev)
+    if prefix_on:
+        _check("prefix_words", prefix_words, (1 << prefix_log2 >> 5,), dev)
+    idx, lw, swo = (torch.empty_like(slot) for _ in range(3))
+    if slot.numel() == 0:
+        return idx, lw, swo
+    psalts_a, pref_w = _refine_consts(prefix_len if prefix_on else 0,
+                                      tuple(prefix_salts) if prefix_on
+                                      else ())
+    rc = _grouped_fn("grouped_take_refine")(
+        slot.data_ptr(), slot.numel(), r_s.data_ptr(), w_s.data_ptr(),
+        swo_s.data_ptr(), r_s.numel(), mpr, block_r, spc,
+        wc.data_ptr(), wc.numel(),
+        prefix_words.data_ptr() if prefix_on else None, psalts_a,
+        len(prefix_salts) if prefix_on else 0, prefix_log2 if prefix_on else 0,
+        pref_w, prefix_len if prefix_on else 0,
+        idx.data_ptr(), lw.data_ptr(), swo.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"grouped_take_refine kernel launch failed: CUDA error {rc}")
+    grouped_take_refine.launches += 1
+    return idx, lw, swo
+
+
+grouped_take_refine.launches = 0

@@ -12,9 +12,9 @@ per-row filter probes every cell's code through
 ``ops/filter_cuda.bloom_word_vmem`` and rank-extracts per 128-lane row.
 Without a bank bloom the take filters probe the positional bloom itself
 by gathers: :func:`filter_hits_sampled_grouped` (one salt over the grid,
-the rest per extracted slot, then a prefix-bloom refinement through
-``ops/filter_cuda.bloom_hit``) where the stride gate holds, else the flat
-:func:`filter_hits_sampled`.  Either way the hits are compacted and
+the rest per extracted slot, then a prefix-bloom refinement: the kernels
+``ops/filter_cuda.grouped_take_extract`` and ``grouped_take_refine``)
+where the stride gate holds, else the flat :func:`filter_hits_sampled`.  Either way the hits are compacted and
 verified by an exact DFA walk over their candidate windows, which emits
 compacted ``(cell, state*32 + j)`` match records for the host to
 expand.  **Anchored**
@@ -273,113 +273,55 @@ def filter_hits_sampled_grouped(
 ):
     """Grouped take filter, for ``stride % 4 == 0`` and ``stride | L``.
 
-    Stage A probes only the first salt over the grid (codes from the
-    packed corpus's word planes).  Survivors are rank-extracted per
-    (``block_r``-row group, lane) column into ``mpr`` slots
-    (``ops/filter_cuda.group_rank_extract``).  Stage B1 re-probes each
-    slot by the remaining salts, or by the second code family
-    (``GRAM_BASE2`` under ``SALT2``) when ``words2`` is given; the live
-    slots are compacted.  Stage B2 refines the compacted hits: a hit
-    whose long word names a single alignment keeps it only if its window
-    prefix hash passes the prefix bit bloom, probed through
-    ``ops/filter_cuda.bloom_hit`` (its kernel on the card).  Refined-dead
-    hits keep their slot with ``INT32_MAX`` and zero words.
+    Two kernels (:mod:`.filter_cuda`; their plain versions on a CPU
+    tensor) with one compaction between them.
+    :func:`~.filter_cuda.grouped_take_extract` probes only the first salt
+    over the grid (codes from the packed corpus words), rank-extracts the
+    survivors per (``block_r``-row group, lane) column into ``mpr`` slots
+    and re-probes each slot by the remaining salts, or by the second code
+    family (``GRAM_BASE2`` under ``SALT2``) when ``words2`` is given.  The
+    live slots are compacted.  :func:`~.filter_cuda.grouped_take_refine`
+    gathers the compacted hits and refines them: a hit whose long word
+    names a single alignment keeps it only if its window prefix hash
+    passes the prefix bit bloom.  Refined-dead hits keep their slot with
+    ``INT32_MAX`` and zero words.
 
     Returns ``(grid_idx [capacity] in slot order, long_word, short_word,
     n_final, n_coarse)`` as device values: ``n_final`` counts the hits
     before the refinement (the capacity to cover), ``n_coarse`` is the
     most survivors of one column (retry with a bigger ``cap_coarse``
     when it exceeds it)."""
-    from .filter_cuda import (
-        _prefix_hash_select, _window_offsets, bloom_hit, group_rank_extract,
-        prefix_refine_words,
-    )
+    from .filter_cuda import grouped_take_extract, grouped_take_refine
 
     B, L = chunks.shape
     if not (stride % 4 == 0 and L % stride == 0):
         raise ValueError("grouped take gate: stride % 4 == 0 and stride | L")
-    dev = chunks.device
     M = L // stride
     spc = stride // 4
     wc = pack_corpus_words(chunks)
-    planes = _word_planes(wc, q, spc)
-    code_u = _planes_code(planes, q, GRAM_BASE)
-    n_grid = B * M
-    w = _salted_probe(words, code_u, salts[0], log2_words).reshape(-1)
-    w = torch.where(min_long_len > 0, w, 0)
-    if shorts:
-        sw = _short_start_words(chunks, lengths, shorts, stride, M).reshape(-1)
-    else:
-        sw = torch.zeros_like(w)
-
-    R = -(-n_grid // 128)
-    n_blocks = max(1, -(-R // block_r))
-    tot = n_blocks * block_r * 128
-
-    def pad_flat(x):
-        return torch.cat([x.reshape(-1), x.new_zeros(tot - n_grid)])
-
+    sw = (_short_start_words(chunks, lengths, shorts, stride, M) if shorts
+          else None)
     mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
-    # with a second-family bloom the slot carries the GRAM_BASE2 code
-    # (its probe replaces the same-code second salt, which a true code
-    # collision would always pass)
-    hv = (_planes_code(planes, q, GRAM_BASE2) if words2 is not None
-          else code_u)
-    r_s, w_s, swo_s, c_s, cnt = group_rank_extract(
-        pad_flat(w), pad_flat(sw), pad_flat(to_i32(hv)), block_r, mpr,
-        n_blocks, n_grid,
+    r_s, w_s, swo_s, _, cnt = grouped_take_extract(
+        words, wc, sw, min_long_len, words2, q=q, spc=spc,
+        log2_words=log2_words, salts=tuple(salts), mpr=mpr, block_r=block_r,
     )
-    nrows = n_blocks * mpr
-    blk = (torch.arange(nrows, dtype=torch.int32, device=dev) // mpr)[:, None]
-    lane = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
-    cell_s = (blk * block_r + r_s) * 128 + lane
-
-    # stage B1: per-slot re-probes
-    c_u = u32(c_s)
-    if words2 is not None:
-        w_s = w_s & _salted_probe(words2, c_u, SALT2, log2_words)
-    else:
-        for salt in salts[1:]:
-            w_s = w_s & _salted_probe(words, c_u, salt, log2_words)
-
-    alive = (r_s >= 0) & ((w_s | swo_s) != 0) & (cell_s < n_grid)
+    # an extracted slot (r_s >= 0) lies in the grid; it lives while a
+    # word survived the re-probes
+    alive = (r_s >= 0) & ((w_s | swo_s) != 0)
     slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
-    safe = torch.clamp(slot, max=nrows * 128 - 1).long()
-    valid = slot < INT32_MAX
-    idx = torch.where(valid, cell_s.reshape(-1)[safe], INT32_MAX)
-    lw = torch.where(valid, w_s.reshape(-1)[safe], 0)
-    swo = torch.where(valid, swo_s.reshape(-1)[safe], 0)
-
-    # stage B2: the prefix refinement on the compacted hits only
     prefix_on = (
         prefix_words is not None
         and stride <= 32
         and 4 <= prefix_len <= 20
         and bool(prefix_salts)
     )
-    if prefix_on:
-        wc_flat = wc.reshape(-1)
-        first_word = torch.where(valid, idx, 0).long() * spc
-        plane_memo = {}
-
-        def get_plane(c):
-            if c not in plane_memo:
-                widx = torch.clamp(first_word + c, 0, wc_flat.shape[0] - 1)
-                plane_memo[c] = wc_flat[widx]
-            return plane_memo[c]
-
-        h_s = _prefix_hash_select(get_plane, lw, stride, prefix_len,
-                                  _window_offsets(spc))
-        ok = None
-        for salt in prefix_salts:
-            bit = bloom_hit(prefix_words, bloom_slots(h_s, prefix_log2, salt))
-            ok = bit if ok is None else (ok & bit)
-        # a long word survives unless its single alignment failed the
-        # probe (alignment bits taken unsigned: bit 31 at stride 32 too)
-        keep = (prefix_refine_words(lw, ok, stride) != 0) | (swo != 0)
-        idx = torch.where(keep, idx, INT32_MAX)
-        lw = torch.where(keep, lw, 0)
-        swo = torch.where(keep, swo, 0)
+    idx, lw, swo = grouped_take_refine(
+        slot, r_s, w_s, swo_s, wc, prefix_words if prefix_on else None,
+        mpr=mpr, block_r=block_r, spc=spc,
+        prefix_salts=tuple(prefix_salts), prefix_log2=prefix_log2,
+        prefix_len=prefix_len,
+    )
     return idx, lw, swo, n_final, cnt.max()
 
 

@@ -443,10 +443,10 @@ def sharded_sampled_records(
     ``CascadeModel.launch_device_records``, run per shard.  Its filter is
     the single-device chain's: the fused kernel (bank bloom, stride a
     multiple of 4), the per-row filter on ``bloom_word_vmem``, the
-    grouped take filter (its prefix refinement on ``bloom_hit``) where
-    the cell-alignment gate holds, else the flat take filter (zeroed
-    coarse counts).  ``phase_g``: per-shard cached word phases of the
-    fused filter, or None.  Returns ``(rec_cell [n_shards, cap_rec]
+    grouped take filter (on ``grouped_take_extract`` and
+    ``grouped_take_refine``) where the cell-alignment gate holds, else
+    the flat take filter (zeroed coarse counts).  ``phase_g``: per-shard
+    cached word phases of the fused filter, or None.  Returns ``(rec_cell [n_shards, cap_rec]
     global grid ids, rec_pack [n_shards, cap_rec], n_recs [n_shards],
     gstats_hits [2], gstats_rec [2], gstats_coarse [2])``; callers gate
     on ``cascade_model.records_ok``."""

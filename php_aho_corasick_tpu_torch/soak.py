@@ -6,7 +6,7 @@ random :class:`ScanConfig` (engine x ``chunk_len`` x capacity x
 ``cascade_mode`` x ``bloom_impl`` x ``table_format`` x ``find_all`` x
 handles x ``auto_shard``), scans the documents with ``match_many`` on the
 device and compares ``(pos, keyIdx)`` with :func:`brute`.  On a card the
-random public calls reach the four hand kernels at random shapes: the
+random public calls reach the six hand kernels at random shapes: the
 module reports how many cases launched each one, and holds every launch
 against the kernel's plain version on the same inputs
 (:func:`held_to_plain`).
@@ -49,6 +49,8 @@ KERNELS = (
     ("ops.filter_cuda", "bloom_word_vmem"),
     ("ops.filter_cuda", "bloom_hit"),
     ("ops.scan_cuda", "scan_states_tile"),
+    ("ops.filter_cuda", "grouped_take_extract"),
+    ("ops.filter_cuda", "grouped_take_refine"),
 )
 #: shards of the one device that an ``auto_shard`` case runs on (the
 #: reference's sweep ran an 8-device CPU mesh)
@@ -178,7 +180,7 @@ def run_case(case: dict, device="cuda") -> dict:
 
 
 def kernel_launches() -> List[int]:
-    """The four hand kernels' launch counters, in :data:`KERNELS` order."""
+    """The hand kernels' launch counters, in :data:`KERNELS` order."""
     import importlib
 
     return [
@@ -216,6 +218,15 @@ def plain_version(name: str, args: tuple, kw: dict):
             a["pack"])
     if name == "bloom_hit":
         return bloom_hit_take(a["words"], a["slots"])
+    if name == "grouped_take_extract":
+        return filter_cuda._grouped_extract_torch(
+            a["words"], a["wc"], a["sw"], a["mll"], a["words2"], a["q"],
+            a["spc"], a["log2_words"], a["salts"], a["mpr"], a["block_r"])
+    if name == "grouped_take_refine":
+        return filter_cuda._grouped_refine_torch(
+            a["slot"], a["r_s"], a["w_s"], a["swo_s"], a["wc"],
+            a["prefix_words"], a["mpr"], a["block_r"], a["spc"],
+            a["prefix_salts"], a["prefix_log2"], a["prefix_len"])
     return _scan_states_tile_torch(
         a["table_flat"], a["byte_class"], a["used_bytes"], a["chunks"],
         a["init_state"], a["n_classes"], a["lengths"])
@@ -223,7 +234,7 @@ def plain_version(name: str, args: tuple, kw: dict):
 
 @contextlib.contextmanager
 def held_to_plain():
-    """Every call of the four kernel wrappers, while the context is open,
+    """Every call of the kernel wrappers, while the context is open,
     is held against the kernel's plain version on the same inputs.
     Yields ``{kernel: largest absolute difference}`` over those calls; an
     output of another shape or dtype raises :class:`SoakMismatch`.  The

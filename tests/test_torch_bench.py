@@ -199,7 +199,9 @@ def test_headline_record(headline_draws):
     assert d["engine"].startswith("cascade/sampled q=9 stride=8")
     assert d["corpus_mib"] == 1.0 and len(d["pass_ms_spread"]) == 5
     assert set(rec["kernels"]) == {"fused_sampled_extract", "bloom_word_vmem",
-                                   "bloom_hit", "scan_states_tile"}
+                                   "bloom_hit", "scan_states_tile",
+                                   "grouped_take_extract",
+                                   "grouped_take_refine"}
     needles, base_docs = headline_draws
     docs = headline.corpus(base_docs, 1 << 20)
     assert d["matches"] == _jax_arrays(needles, docs)["doc"].shape[0] == 0

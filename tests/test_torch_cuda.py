@@ -19,12 +19,18 @@ import php_aho_corasick_tpu_torch as port  # noqa: E402
 from php_aho_corasick_tpu_torch.ops.filter_cuda import (  # noqa: E402
     _bank_probe_torch,
     _fused_extract_torch,
+    _grouped_extract_torch,
+    _grouped_refine_torch,
     bloom_hit,
     bloom_word_vmem,
     fused_sampled_extract,
+    grouped_take_extract,
+    grouped_take_refine,
 )
 from php_aho_corasick_tpu_torch.ops.filter_torch import (  # noqa: E402
+    blocked_nonzero,
     bloom_hit_take,
+    to_i32,
     u32,
 )
 from php_aho_corasick_tpu_torch.ops.scan_cuda import (  # noqa: E402
@@ -342,6 +348,164 @@ def test_bloom_hit_matches_plain(cuda, log2_bits, n):
     assert torch.equal(got, want)
 
 
+def _grouped_inputs(dev, seed, B, M, stride, q, log2_words, dens, dual,
+                    shorts, mll=1):
+    """Random grouped-take inputs made on ``dev`` from a seeded
+    generator: a packed corpus of ``B`` rows of ``M`` cells, a positional
+    bloom whose words are nonzero at ``dens`` (half of them one alignment
+    bit, the top one included), a second-family bloom passing half the
+    slots, short words at 1% of the cells."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(*shape):
+        return torch.randint(-(2**31), 2**31, shape, generator=g,
+                             dtype=torch.int64, device=dev).to(torch.int32)
+
+    def where(p, x):
+        u = torch.rand(x.shape, generator=g, device=dev)
+        return torch.where(u < p, x, 0)
+
+    n = 1 << log2_words
+    one = torch.randint(0, stride, (n,), generator=g, device=dev)
+    smask = (1 << stride) - 1
+    bits = torch.where(torch.rand(n, generator=g, device=dev) < 0.5,
+                       torch.ones_like(one) << one,
+                       (ints(n).to(torch.int64) & smask) | 1)
+    words = where(dens, to_i32(bits))
+    return dict(
+        words=words, wc=ints(B, M * (stride // 4)),
+        sw=where(0.01, ints(B, M)) if shorts else None,
+        mll=torch.tensor(mll, dtype=torch.int32, device=dev),
+        words2=where(0.5, ints(n)) if dual else None,
+    )
+
+
+GROUPED_EXTRACT_CASES = [
+    # stride, q, k, dual, shorts, block_r, mpr, B, M, log2_words, dens, mll
+    (8, 9, 2, False, False, 1024, 24, 33, 256, 13, 0.02, 1),
+    (12, 5, 2, True, False, 256, 8, 17, 341, 14, 0.05, 1),  # cnt > mpr
+    (16, 16, 3, False, True, 128, 16, 40, 100, 12, 0.01, 1),
+    (32, 9, 1, False, True, 512, 128, 9, 1000, 13, 0.3, 1),  # bit 31
+    (4, 9, 2, False, False, 100, 8, 50, 64, 13, 0.05, 1),  # words past a cell
+    (20, 13, 4, True, True, 1000, 40, 7, 999, 15, 0.02, 1),
+    (8, 1, 8, False, True, 32, 8, 3, 77, 10, 0.1, 1),  # q 1, 8 salts
+    (8, 9, 2, True, True, 1024, 24, 33, 256, 13, 0.02, 0),  # mll 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "stride,q,k,dual,shorts,block_r,mpr,B,M,log2_words,dens,mll",
+    GROUPED_EXTRACT_CASES)
+def test_grouped_take_extract_matches_plain(cuda, stride, q, k, dual, shorts,
+                                            block_r, mpr, B, M, log2_words,
+                                            dens, mll):
+    a = _grouped_inputs(cuda, stride * q + k, B, M, stride, q, log2_words,
+                        dens, dual, shorts, mll)
+    kw = dict(q=q, spc=stride // 4, log2_words=log2_words, salts=_salts(k),
+              mpr=mpr, block_r=block_r)
+    before = grouped_take_extract.launches
+    got = grouped_take_extract(a["words"], a["wc"], a["sw"], a["mll"],
+                               a["words2"], **kw)
+    want = _grouped_extract_torch(a["words"], a["wc"], a["sw"], a["mll"],
+                                  a["words2"], kw["q"], kw["spc"],
+                                  log2_words, kw["salts"], mpr, block_r)
+    torch.cuda.synchronize()
+    assert grouped_take_extract.launches == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.int32 and torch.equal(x, y)
+    assert int(got[4].sum()) > 0
+
+
+GROUPED_REFINE_CASES = [
+    # stride, q, dual, prefix_len, n_psalts, prefix_log2, capacity
+    (8, 9, False, 12, 2, 15, 4096),
+    (12, 5, True, 4, 1, 17, 4096),
+    (32, 9, False, 20, 2, 15, 4096),  # alignment bit 31
+    (16, 16, False, 16, 2, 20, 64),  # fewer entries than hits
+    (8, 9, True, 0, 0, 0, 4096),  # no prefix bloom: the gathers only
+    (4, 9, False, 9, 3, 16, 1024),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "stride,q,dual,prefix_len,n_psalts,prefix_log2,capacity",
+    GROUPED_REFINE_CASES)
+def test_grouped_take_refine_matches_plain(cuda, stride, q, dual, prefix_len,
+                                           n_psalts, prefix_log2, capacity):
+    a = _grouped_inputs(cuda, stride + prefix_len, 29, 300, stride, q, 13,
+                        0.05, dual, True)
+    mpr, block_r, spc = 24, 256, stride // 4
+    r_s, w_s, swo_s, _, _ = _grouped_extract_torch(
+        a["words"], a["wc"], a["sw"], a["mll"], a["words2"], q, spc, 13,
+        _salts(2), mpr, block_r)
+    slot, n = blocked_nonzero(
+        ((r_s >= 0) & ((w_s | swo_s) != 0)).reshape(-1), capacity)
+    pw = None
+    if prefix_len:
+        g = torch.Generator(device=cuda).manual_seed(prefix_log2)
+        pw = torch.randint(-(2**31), 2**31, ((1 << prefix_log2) // 32,),
+                           generator=g, dtype=torch.int64,
+                           device=cuda).to(torch.int32)
+    kw = dict(mpr=mpr, block_r=block_r, spc=spc,
+              prefix_salts=(PREFIX_SALTS * 2)[:n_psalts],
+              prefix_log2=prefix_log2, prefix_len=prefix_len)
+    before = grouped_take_refine.launches
+    got = grouped_take_refine(slot, r_s, w_s, swo_s, a["wc"], pw, **kw)
+    want = _grouped_refine_torch(slot, r_s, w_s, swo_s, a["wc"], pw,
+                                 *kw.values())
+    torch.cuda.synchronize()
+    assert grouped_take_refine.launches == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.int32 and torch.equal(x, y)
+    live = int((got[0] < 2**31 - 1).sum())
+    assert 0 < live
+    if prefix_len:
+        assert live < min(int(n), capacity)  # the refinement dropped some
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["take-grouped", "signature-byte",
+                                   "signature-hex"])
+def test_grouped_take_kernels_at_path_shapes(cuda, shape):
+    """Both kernels against their plain versions at the grid, bloom and
+    slot shapes of the cells that run the grouped take filter: the
+    headline set's 128 MiB at stride 8, and the 1M signature sets' 64 MiB
+    with a 2^28-word bloom (the byte set's second code family too)."""
+    stride, q, B, M, log2_words, dual, block_r, mpr, plog2 = {
+        "take-grouped": (8, 9, 32768, 512, 21, False, 1024, 24, 15),
+        "signature-byte": (12, 5, 16384, 342, 28, True, 256, 8, 26),
+        "signature-hex": (8, 9, 16384, 512, 28, False, 512, 8, 26),
+    }[shape]
+    a = _grouped_inputs(cuda, log2_words, B, M, stride, q, log2_words,
+                        0.01, dual, False)
+    spc = stride // 4
+    got = grouped_take_extract(a["words"], a["wc"], None, a["mll"],
+                               a["words2"], q=q, spc=spc,
+                               log2_words=log2_words, salts=_salts(2),
+                               mpr=mpr, block_r=block_r)
+    want = _grouped_extract_torch(a["words"], a["wc"], None, a["mll"],
+                                  a["words2"], q, spc, log2_words, _salts(2),
+                                  mpr, block_r)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    r_s, w_s, swo_s, _, cnt = got
+    slot, n = blocked_nonzero(
+        ((r_s >= 0) & ((w_s | swo_s) != 0)).reshape(-1), 4096)
+    assert int(n) > 0 and int(cnt.max()) > 0
+    g = torch.Generator(device=cuda).manual_seed(plog2)
+    pw = torch.randint(-(2**31), 2**31, ((1 << plog2) // 32,), generator=g,
+                       dtype=torch.int64, device=cuda).to(torch.int32)
+    kw = dict(mpr=mpr, block_r=block_r, spc=spc, prefix_salts=PREFIX_SALTS,
+              prefix_log2=plog2, prefix_len=16)
+    got = grouped_take_refine(slot, r_s, w_s, swo_s, a["wc"], pw, **kw)
+    want = _grouped_refine_torch(slot, r_s, w_s, swo_s, a["wc"], pw,
+                                 *kw.values())
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("length,alphabet", [
     (13, b"abcdef"),  # the per-row filter (stride 5)
@@ -372,7 +536,7 @@ def test_host_verify_and_rows_paths_card_equal_cpu(cuda, length, alphabet):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl,n,branch", [
-    ("take", 300, "grouped"),  # stride 8: the prefix probes on bloom_hit
+    ("take", 300, "grouped"),  # stride 8: the grouped take kernels
     ("take", 40, "flat"),  # stride 10
     ("auto", 8192, "flat"),  # no bank bloom at the default config
 ])
@@ -390,7 +554,8 @@ def test_take_paths_card_equal_cpu(cuda, impl, n, branch):
     specs = [{"id": i, "value": p} for i, p in enumerate(needles)]
     cfg = port.ScanConfig(chunk_len=4096, bloom_impl=impl)
     res = []
-    before = bloom_hit.launches
+    kernels = (grouped_take_extract, grouped_take_refine, bloom_hit)
+    before = [k.launches for k in kernels]
     for device in (cuda, "cpu"):
         m = port.Matcher(specs, cfg, device=device)
         cm = m.cascade_model
@@ -399,8 +564,14 @@ def test_take_paths_card_equal_cpu(cuda, impl, n, branch):
         assert cm.take_branch(h.chunks_d.shape[1]) == branch
         res.append(m.match_arrays_many([h, h]))
         if device == cuda:
-            launched = bloom_hit.launches - before
-            assert launched >= 2 if branch == "grouped" else launched == 0
+            launched = [k.launches - b for k, b in zip(kernels, before)]
+            # each kernel at least once a pass (capacity retries add
+            # launches), and no bloom_hit
+            if branch == "grouped":
+                assert launched[0] == launched[1] >= 2, launched
+                assert launched[2] == 0, launched
+            else:
+                assert launched == [0, 0, 0], launched
     for a, b in zip(*res):
         for key in a:
             np.testing.assert_array_equal(a[key], b[key])
@@ -548,7 +719,7 @@ def test_stream_and_replace_card_equal_cpu(cuda, engine):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg", [
     dict(),  # the fused filter's records chain
-    dict(bloom_impl="take"),  # the grouped take filter (bloom_hit)
+    dict(bloom_impl="take"),  # the grouped take filter's two kernels
     dict(table_format="compressed"),
     dict(engine="dfa"),
     dict(engine="kgram"),

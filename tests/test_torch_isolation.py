@@ -91,6 +91,22 @@ doc = b"ab" * 300 + pats[0] + b"c" * 50 + b"xy" + b"d" * 400
 res = m.match_arrays_many([m.device_corpus([doc, doc[::-1]])])[0]
 assert sorted(zip(res["doc"].tolist(), res["pos"].tolist(),
                   res["pattern"].tolist())) == want
+# the grouped take filter's two kernel wrappers (plain versions here),
+# through the Matcher above and called directly
+from php_aho_corasick_tpu_torch.ops import filter_cuda, filter_torch
+chunks = torch.from_numpy(rng.integers(97, 100, (3, 512)).astype(np.uint8))
+wc = filter_torch.pack_corpus_words(chunks)
+words = torch.full((1 << 10,), 1 << 7, dtype=torch.int32)
+r_s, w_s, swo_s, c_s, cnt = filter_cuda.grouped_take_extract(
+    words, wc, None, torch.tensor(1, dtype=torch.int32), q=9, spc=2,
+    log2_words=10, salts=(5, 7), mpr=8, block_r=128)
+assert int(cnt.sum()) == 3 * 64 and int(cnt.max()) == 2
+slot, n = filter_torch.blocked_nonzero((r_s >= 0).reshape(-1), 256)
+idx, lw, swo = filter_cuda.grouped_take_refine(
+    slot, r_s, w_s, swo_s, wc, torch.zeros(1 << 10, dtype=torch.int32),
+    mpr=8, block_r=128, spc=2, prefix_salts=(3,), prefix_log2=15,
+    prefix_len=12)
+assert int(n) == 192 and bool((idx == filter_torch.INT32_MAX).all())
 p = b"abcdefabcdefabcd"
 m = port.Matcher([{"value": p}],
                  port.ScanConfig(engine="cascade", cascade_mode="sampled",

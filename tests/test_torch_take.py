@@ -129,20 +129,21 @@ def test_filter_hits_sampled_matches_jax(stride, q, shorts):
     np.testing.assert_array_equal(small[0].numpy(), idx[: n // 2].numpy())
 
 
-class _BloomHitSpy:
-    """Counts the prefix probes that go through ``filter_cuda.bloom_hit``
-    (on a CPU tensor its plain version runs, and no launch is counted)."""
+class _RefineSpy:
+    """Records, for each call of ``filter_cuda.grouped_take_refine``,
+    whether it was given the prefix bit bloom (on a CPU tensor its plain
+    version runs, and no launch is counted)."""
 
     def __init__(self, monkeypatch):
-        self.calls = 0
-        real = filter_cuda.bloom_hit
+        self.prefix = []
+        real = filter_cuda.grouped_take_refine
 
-        def spy(words, slots):
-            self.calls += 1
-            assert slots.dtype == torch.int32
-            return real(words, slots)
+        def spy(slot, r_s, w_s, swo_s, wc, prefix_words=None, **kw):
+            self.prefix.append(prefix_words is not None)
+            assert slot.dtype == torch.int32
+            return real(slot, r_s, w_s, swo_s, wc, prefix_words, **kw)
 
-        monkeypatch.setattr(filter_cuda, "bloom_hit", spy)
+        monkeypatch.setattr(filter_cuda, "grouped_take_refine", spy)
 
 
 @pytest.mark.parametrize("stride,q,prefix,dual,shorts", [
@@ -175,14 +176,14 @@ def test_filter_hits_sampled_grouped_matches_jax(monkeypatch, stride, q,
             jnp.int32(mll),
             prefix_words=jnp.asarray(pwords) if prefix else None,
             words2=None if words2 is None else jnp.asarray(words2), **kw)
-    spy = _BloomHitSpy(monkeypatch)
+    spy = _RefineSpy(monkeypatch)
     got = filter_torch.filter_hits_sampled_grouped(
         _t(words), _t(chunks), _t(lengths),
         torch.tensor(mll, dtype=torch.int32),
         prefix_words=_t(pwords) if prefix else None,
         words2=None if words2 is None else _t(words2), **kw)
     _same(want, got)
-    assert spy.calls == (len(PREFIX_SALTS) if prefix else 0)
+    assert spy.prefix == [prefix]
     n, n_coarse = int(got[3]), int(got[4])
     assert 0 < n <= 1024 and 0 < n_coarse <= 24
     if prefix:
