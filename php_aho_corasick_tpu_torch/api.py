@@ -37,6 +37,7 @@ the single-device chain on its row block (``parallel/shard_scan.py``).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
@@ -54,6 +55,7 @@ from .ops.matches import (
 )
 from .patterns import Pattern, parse_batch
 from .utils import next_pow2 as _next_pow2
+from .utils.profiling import span, wait
 
 Haystack = Union[str, bytes, bytearray]
 
@@ -162,6 +164,31 @@ def _as_bytes(h: Haystack) -> bytes:
     return bytes(h)
 
 
+def _corpus_attrs(corpus) -> dict:
+    """What a ``call`` span notes of its corpus: a resident handle's bytes
+    and documents, a handle list's bytes and length, a document list's
+    length."""
+    if isinstance(corpus, DeviceCorpus):
+        return {"bytes": corpus.total_bytes, "docs": corpus.n_docs}
+    if isinstance(corpus, (list, tuple)):
+        if corpus and isinstance(corpus[0], DeviceCorpus):
+            return {"bytes": sum(h.total_bytes for h in corpus),
+                    "handles": len(corpus)}
+        return {"docs": len(corpus)}
+    return {}
+
+
+def _scan_call(method):
+    """The root ``call`` span around a public scan entry."""
+
+    @functools.wraps(method)
+    def call(self, corpus, *args, **kwargs):
+        with span("call", **_corpus_attrs(corpus)):
+            return method(self, corpus, *args, **kwargs)
+
+    return call
+
+
 def _first_groups(results: List[List[dict]]) -> List[List[dict]]:
     """Each document's records of its first matching end position only
     (the reference's callback-return abort, ``php_ahocorasick.c:588``)."""
@@ -245,33 +272,34 @@ class Matcher:
             raise StateError("matcher is closed")
         if self._finalized:
             return False
-        model_cls = DenseDfaModel
-        if not self._patterns:
-            self._auto = empty_automaton()
-        elif self._use_compressed_table():
-            from .core.automaton import compile_trie_compressed
-            from .models.compressed_dfa import CompressedDfaModel
+        with span("build", needles=len(self._patterns)):
+            model_cls = DenseDfaModel
+            if not self._patterns:
+                self._auto = empty_automaton()
+            elif self._use_compressed_table():
+                from .core.automaton import compile_trie_compressed
+                from .models.compressed_dfa import CompressedDfaModel
 
-            if isinstance(self._trie, TrieBuilder):
-                self._auto = compile_trie_compressed(
-                    self._trie, [len(p) for p in self._patterns]
+                if isinstance(self._trie, TrieBuilder):
+                    self._auto = compile_trie_compressed(
+                        self._trie, [len(p) for p in self._patterns]
+                    )
+                else:  # native builder (signature scale)
+                    self._auto = self._trie.compile_compressed()
+                model_cls = CompressedDfaModel
+            elif isinstance(self._trie, TrieBuilder):
+                self._auto = compile_trie(
+                    self._trie,
+                    [len(p) for p in self._patterns],
+                    allow_int16=self.config.allow_int16_states,
                 )
-            else:  # native builder (signature scale)
-                self._auto = self._trie.compile_compressed()
-            model_cls = CompressedDfaModel
-        elif isinstance(self._trie, TrieBuilder):
-            self._auto = compile_trie(
-                self._trie,
-                [len(p) for p in self._patterns],
-                allow_int16=self.config.allow_int16_states,
-            )
-        else:  # native builder
-            self._auto = self._trie.compile(
-                allow_int16=self.config.allow_int16_states
-            )
-        self._trie.closed = True
-        self._model = model_cls(self._auto, self.config, self.device)
-        self._finalized = True
+            else:  # native builder
+                self._auto = self._trie.compile(
+                    allow_int16=self.config.allow_int16_states
+                )
+            self._trie.closed = True
+            self._model = model_cls(self._auto, self.config, self.device)
+            self._finalized = True
         return True
 
     def _use_compressed_table(self) -> bool:
@@ -460,6 +488,7 @@ class Matcher:
         (``php_ahocorasick.c:588``)."""
         return self.match_many([haystack], find_all=find_all, backend=backend)[0]
 
+    @_scan_call
     def match_many(
         self,
         haystacks: Union[Sequence[Haystack], DeviceCorpus],
@@ -561,11 +590,12 @@ class Matcher:
         import math
 
         halo = max(self._auto.max_len - 1, 0)
-        return pack_documents(
-            docs, self._pack_chunk_len(), halo,
-            math.lcm(self.config.batch_pad, n_shards),
-            row_align=self._row_align(),
-        )
+        with span("pack", docs=len(docs), shards=n_shards):
+            return pack_documents(
+                docs, self._pack_chunk_len(), halo,
+                math.lcm(self.config.batch_pad, n_shards),
+                row_align=self._row_align(),
+            )
 
     def _upload(self, docs: List[bytes], mesh=None) -> DeviceCorpus:
         """Pack ``docs`` into halo-overlapped rows and copy them to the
@@ -574,25 +604,28 @@ class Matcher:
         memory and the copies are enqueued without waiting, so the host
         returns while earlier work (a previous slice's chain) still
         runs."""
-        packed = self._pack(docs, len(mesh) if mesh is not None else 1)
-        pin = self.device.type == "cuda"
-        if mesh is not None:
-            from .parallel.mesh import row_sharding
+        n_shards = len(mesh) if mesh is not None else 1
+        total = sum(map(len, docs))
+        with span("upload", bytes=total, docs=len(docs), shards=n_shards):
+            packed = self._pack(docs, n_shards)
+            pin = self.device.type == "cuda"
+            if mesh is not None:
+                from .parallel.mesh import row_sharding
 
-            def put(x):
-                return row_sharding(mesh, x, pin=pin)
-        else:
-            def put(x):
-                t = torch.from_numpy(x)
-                return (t.pin_memory() if pin else t).to(
-                    self.device, non_blocking=True
-                )
+                def put(x):
+                    return row_sharding(mesh, x, pin=pin)
+            else:
+                def put(x):
+                    t = torch.from_numpy(x)
+                    return (t.pin_memory() if pin else t).to(
+                        self.device, non_blocking=True
+                    )
 
-        return DeviceCorpus(
-            packed, put(packed.chunks), put(packed.lengths),
-            put(packed.emit_from), len(docs), sum(map(len, docs)),
-            self.config.chunk_len, mesh=mesh,
-        )
+            return DeviceCorpus(
+                packed, put(packed.chunks), put(packed.lengths),
+                put(packed.emit_from), len(docs), total,
+                self.config.chunk_len, mesh=mesh,
+            )
 
     def _pack_chunk_len(self) -> int:
         """Chunk row length used for packing: ``chunk_len`` rounded up to
@@ -687,12 +720,15 @@ class Matcher:
             idx, sts, n, _ = model.scan_compact_device(
                 dc.chunks_d, dc.lengths_d, dc.emit_from_d, None, capacity
             )
-            n = int(n)
+            with wait(self.stats, n):
+                n = int(n)
             if n <= capacity:
                 break
             capacity = _next_pow2(n)
         # one fetch of the occupied prefix of both buffers
-        flat = torch.cat([idx[:n], sts[:n]]).cpu().numpy()
+        flat = torch.cat([idx[:n], sts[:n]])
+        with wait(self.stats, flat):
+            flat = flat.cpu().numpy()
         if engine == "kgram":
             arrays = expand_matches_kgram_arrays(
                 self._auto, dc.packed, model.k, flat[:n], flat[n:], n
@@ -720,6 +756,7 @@ class Matcher:
             groups.append(group)
         return groups
 
+    @_scan_call
     def match_arrays(
         self,
         haystacks: Union[Sequence[Haystack], DeviceCorpus],
@@ -814,6 +851,7 @@ class Matcher:
                 for pid in auto.emit_pats[lo:hi]:
                     out.append(self._format(int(pid), int(t) + 1))
 
+    @_scan_call
     def match_arrays_many(
         self,
         handles: Sequence[DeviceCorpus],
@@ -933,6 +971,12 @@ class Matcher:
         records path goes through it, in order."""
         self._check_open()
         cm = self.cascade_model
+
+        def finish(pending):
+            # a batch's finish alone is a call (no span is open at a yield)
+            with span("call", handles=len(pending[0])):
+                return self._records_batch_finish(*pending, find_all)
+
         prev = None
         for batch in handle_batches:
             batch = list(batch)
@@ -949,76 +993,91 @@ class Matcher:
             )
             if not fast:
                 if prev is not None:
-                    yield self._records_batch_finish(*prev, find_all)
+                    yield finish(prev)
                     prev = None
                 yield self.match_arrays_many(batch, find_all)
                 continue
             for h in batch:
                 self._check_handle(h)
-            cur = self._records_batch_dispatch(batch, cm)
+            # a batch's call: its dispatch and the previous batch's finish
+            with span("call", handles=len(batch)):
+                cur = self._records_batch_dispatch(batch, cm)
+                done = (self._records_batch_finish(*prev, find_all)
+                        if prev is not None else None)
             if prev is not None:
-                yield self._records_batch_finish(*prev, find_all)
+                yield done
             prev = cur
         if prev is not None:
-            yield self._records_batch_finish(*prev, find_all)
+            yield finish(prev)
 
     def _records_batch_dispatch(self, handles, cm):
         """Enqueue the speculative records chains for a batch — device
         work only, no host fetch.  On CUDA the batch's occupancy counts
         are then copied into pinned host memory without waiting, and an
         event marks the end of this batch's work: its finish waits for
-        that event alone, not for batches enqueued after it."""
+        that event alone, not for batches enqueued after it.  The
+        capacities the chains ran with go to the finish, which judges
+        every handle's overflow against them."""
         cap_a = max(cm._cap_hits, 256)
         cap_r = max(cm._cap_flagged, 256)
-        outs = [
-            cm.launch_device_records(
-                h.chunks_d, h.lengths_d, h.emit_from_d, cap_a, cap_r,
-                phase_g=h.fused_phases(cm),
-            )
-            for h in handles
-        ]
-        counts = torch.stack([s for o in outs for s in o[2:5]])
-        ready = None
-        if counts.is_cuda:
-            host = torch.empty(counts.shape, dtype=counts.dtype,
-                               pin_memory=True)
-            counts = host.copy_(counts, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        return handles, cm, outs, cap_a, cap_r, counts, ready
-
-    def _records_batch_finish(self, handles, cm, outs, cap_a, cap_r,
-                              counts, ready, find_all):
-        if ready is not None:
-            ready.synchronize()
-        counts = counts.reshape(len(outs), 3).tolist()
-        # one concatenated fetch for every in-capacity handle's records
-        pieces = []
-        for (rc, rp, _, _, _), (n, nr, nc) in zip(outs, counts):
-            if n <= cap_a and nr <= cap_r and nc <= cm._cap_coarse and nr > 0:
-                pieces.append(rc[:nr])
-                pieces.append(rp[:nr])
-        rec_flat = self._fetch_after(pieces, ready) if pieces else None
-        off = 0
-        results = []
-        for h, (n, nr, nc) in zip(handles, counts):
-            if n > cap_a or nr > cap_r or nc > cm._cap_coarse:
-                # overflow: this handle re-runs through the adaptive path
-                arrays = cm.run_arrays(
-                    h.packed, self.config.match_capacity,
-                    dev_inputs=h.dev_inputs_for(cm),
+        cap_c = cm._cap_coarse
+        with span("dispatch", handles=len(handles)):
+            outs = [
+                cm.launch_device_records(
+                    h.chunks_d, h.lengths_d, h.emit_from_d, cap_a, cap_r,
+                    phase_g=h.fused_phases(cm),
                 )
-            elif nr == 0:
-                z = np.zeros(0, np.int64)
-                arrays = (z, z, z)
-            else:
-                rc_np = rec_flat[off : off + nr]
-                rp_np = rec_flat[off + nr : off + 2 * nr]
-                off += 2 * nr
-                arrays = cm.emit_records_arrays(h.packed, rc_np, rp_np, nr)
-            results.append(
-                self._arrays_result(h.total_bytes, *arrays, find_all=find_all)
-            )
+                for h in handles
+            ]
+            counts = torch.stack([s for o in outs for s in o[2:5]])
+            ready = None
+            if counts.is_cuda:
+                host = torch.empty(counts.shape, dtype=counts.dtype,
+                                   pin_memory=True)
+                counts = host.copy_(counts, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+        return handles, cm, outs, cap_a, cap_r, cap_c, counts, ready
+
+    def _records_batch_finish(self, handles, cm, outs, cap_a, cap_r, cap_c,
+                              counts, ready, find_all):
+        """Each handle's overflow is decided once, against the capacities
+        its chain ran with (a re-run grows ``cm``'s learned ones); every
+        in-capacity handle's records come back in one fetch."""
+        with span("finish", handles=len(handles)):
+            with wait(self.stats, counts):
+                if ready is not None:
+                    ready.synchronize()
+                counts = counts.reshape(len(outs), 3).tolist()
+            fits = [n <= cap_a and nr <= cap_r and nc <= cap_c
+                    for n, nr, nc in counts]
+            # one concatenated fetch for every in-capacity handle's records
+            pieces = []
+            for (rc, rp, *_), ok, (_, nr, _) in zip(outs, fits, counts):
+                if ok and nr > 0:
+                    pieces += (rc[:nr], rp[:nr])
+            rec_flat = self._fetch_after(pieces, ready) if pieces else None
+            off = 0
+            results = []
+            for h, ok, (_, nr, _) in zip(handles, fits, counts):
+                if not ok:
+                    # overflow: this handle re-runs through the adaptive path
+                    with span("retry", stage="batch"):
+                        arrays = cm.run_arrays(
+                            h.packed, self.config.match_capacity,
+                            dev_inputs=h.dev_inputs_for(cm),
+                        )
+                elif nr == 0:
+                    z = np.zeros(0, np.int64)
+                    arrays = (z, z, z)
+                else:
+                    rc_np = rec_flat[off : off + nr]
+                    rp_np = rec_flat[off + nr : off + 2 * nr]
+                    off += 2 * nr
+                    arrays = cm.emit_records_arrays(h.packed, rc_np, rp_np,
+                                                    nr)
+                results.append(self._arrays_result(
+                    h.total_bytes, *arrays, find_all=find_all))
         return results
 
     def _fetch_after(self, pieces, ready) -> np.ndarray:
@@ -1027,7 +1086,9 @@ class Matcher:
         batch) alone, so work enqueued on the current stream after that
         batch (the next batch's chains) does not hold the fetch up."""
         if ready is None:
-            return torch.cat(pieces).numpy()
+            flat = torch.cat(pieces)
+            with wait(self.stats, flat):
+                return flat.numpy()
         if self._fetch_stream is None:
             self._fetch_stream = torch.cuda.Stream(device=self.device)
         side = self._fetch_stream
@@ -1039,7 +1100,8 @@ class Matcher:
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
             done = side.record_event()
-        done.synchronize()
+        with wait(self.stats, host):
+            done.synchronize()
         return host.numpy()
 
     # ------------------------------------------------------------ sharded
@@ -1057,16 +1119,17 @@ class Matcher:
         cap_a = max(cm._cap_hits, 256)
         cap_r = max(cm._cap_flagged, 256)
         outs = []
-        for h in handles:
-            chunks, lengths, emit_from, phases = h.dev_inputs_for(cm)
-            outs.append(sharded_sampled_records(
-                h.mesh, cm, chunks, lengths, emit_from, cap_a, cap_r,
-                collect=collect, phase_g=phases,
-            ))
-        stats = torch.stack([
-            torch.cat([torch.stack([gh, gr, gc]).reshape(-1), nrs])
-            for (_, _, nrs, gh, gr, gc) in outs
-        ])
+        with span("dispatch", handles=len(handles)):
+            for h in handles:
+                chunks, lengths, emit_from, phases = h.dev_inputs_for(cm)
+                outs.append(sharded_sampled_records(
+                    h.mesh, cm, chunks, lengths, emit_from, cap_a, cap_r,
+                    collect=collect, phase_g=phases,
+                ))
+            stats = torch.stack([
+                torch.cat([torch.stack([gh, gr, gc]).reshape(-1), nrs])
+                for (_, _, nrs, gh, gr, gc) in outs
+            ])
         return handles, cm, outs, cap_a, cap_r, stats, collect
 
     def _records_batch_sharded_finish(self, handles, cm, outs, cap_a, cap_r,
@@ -1074,39 +1137,52 @@ class Matcher:
         """One fetch of the stacked stats decides each handle's retries
         (on the per-shard maxima); every in-capacity handle's per-shard
         record slices then come back in one concatenated fetch."""
-        stats = stats.cpu().numpy()
-        meta, groups = [], []
-        for (rc, rp, *_), st in zip(outs, stats):
-            ok = (
-                int(st[1]) <= cap_a
-                and int(st[3]) <= cap_r
-                and int(st[5]) <= cm._cap_coarse
-            )
-            if ok:
-                groups.append((rc, rp, [int(x) for x in st[6:]]))
-            meta.append(ok)
-        gathered = iter(self._gather_shard_records(groups))
-        results = []
-        for h, ok in zip(handles, meta):
-            if not ok:
-                chunks, lengths, emit_from, phases = h.dev_inputs_for(cm)
-                arrays = self._sharded_records_arrays(
-                    h.mesh, cm, h.packed, chunks, lengths, emit_from,
-                    collect, phases,
+        with span("finish", handles=len(handles)):
+            with wait(self.stats, stats):
+                stats = stats.cpu().numpy()
+            meta, groups = [], []
+            for (rc, rp, *_), st in zip(outs, stats):
+                ok = (
+                    int(st[1]) <= cap_a
+                    and int(st[3]) <= cap_r
+                    and int(st[5]) <= cm._cap_coarse
                 )
-            else:
-                cells, packs, total = next(gathered)
-                if total == 0:
-                    z = np.zeros(0, np.int64)
-                    arrays = (z, z, z)
+                if ok:
+                    groups.append((rc, rp, [int(x) for x in st[6:]]))
+                meta.append(ok)
+            gathered = iter(self._fetch_shard_records(groups))
+            results = []
+            for h, ok in zip(handles, meta):
+                if not ok:
+                    chunks, lengths, emit_from, phases = h.dev_inputs_for(cm)
+                    with span("retry", stage="batch"):
+                        arrays = self._sharded_records_arrays(
+                            h.mesh, cm, h.packed, chunks, lengths,
+                            emit_from, collect, phases,
+                        )
                 else:
-                    arrays = cm.emit_records_arrays(
-                        h.packed, cells, packs, total
-                    )
-            results.append(
-                self._arrays_result(h.total_bytes, *arrays, find_all=find_all)
-            )
+                    cells, packs, total = next(gathered)
+                    if total == 0:
+                        z = np.zeros(0, np.int64)
+                        arrays = (z, z, z)
+                    else:
+                        arrays = cm.emit_records_arrays(
+                            h.packed, cells, packs, total
+                        )
+                results.append(self._arrays_result(
+                    h.total_bytes, *arrays, find_all=find_all))
         return results
+
+    def _fetch_shard_records(self, groups):
+        """:meth:`_gather_shard_records`, the one point where the host
+        waits for the records of ``groups``."""
+        n_rec = sum(sum(sizes) for *_, sizes in groups)
+        if not n_rec:
+            return self._gather_shard_records(groups)
+        rc, rp, _ = groups[0]
+        rec_bytes = rc.element_size() + rp.element_size()
+        with wait(self.stats, n_rec * rec_bytes):
+            return self._gather_shard_records(groups)
 
     @staticmethod
     def _gather_shard_records(groups):
@@ -1121,7 +1197,12 @@ class Matcher:
                 if nr:
                     pieces.append(rc[s, :nr])
                     pieces.append(rp[s, :nr])
-        buf = torch.cat(pieces).cpu().numpy() if pieces else None
+        buf = None
+        if pieces:
+            with span("gather", card=pieces[0].device,
+                      shards=len(groups[0][2])):
+                flat = torch.cat(pieces)
+            buf = flat.cpu().numpy()
         out = []
         off = 0
         z = np.zeros(0, np.int64)
@@ -1156,15 +1237,15 @@ class Matcher:
                 mesh, cm, chunks, lengths, emit_from, cap_a, cap_r,
                 collect=collect, phase_g=phases,
             )
-            flat = torch.cat(
-                [torch.stack([gh, gr, gc]).reshape(-1), nrs]
-            ).cpu().numpy()
+            flat = torch.cat([torch.stack([gh, gr, gc]).reshape(-1), nrs])
+            with wait(self.stats, flat):
+                flat = flat.cpu().numpy()
             state["nrs"] = flat[6:]
             return (rc, rp), int(flat[1]), int(flat[3]), int(flat[5])
 
         (rc, rp), _ = cm.adaptive_chain(launch_r)
         sizes = [int(x) for x in state["nrs"]]
-        ((cells, packs, total),) = self._gather_shard_records(
+        ((cells, packs, total),) = self._fetch_shard_records(
             [(rc, rp, sizes)]
         )
         if total == 0:
@@ -1206,15 +1287,20 @@ class Matcher:
                     mesh, cm, chunks, lengths, cap_a, cap_b,
                     collect=collect, phase_g=phases,
                 )
-                flat = torch.cat([gh, gf, gc, nfs]).cpu().numpy()
+                flat = torch.cat([gh, gf, gc, nfs])
+                with wait(self.stats, flat):
+                    flat = flat.cpu().numpy()
                 state["nfs"] = flat[6:]
                 return cells, int(flat[1]), int(flat[3]), int(flat[5])
 
             cells, _ = cm.adaptive_chain(launch)
             pieces = [cells[s, :nf] for s, nf in enumerate(state["nfs"])
                       if nf]
-            merged = (torch.cat(pieces).cpu().numpy() if pieces
-                      else np.zeros(0, np.int32))
+            merged = np.zeros(0, np.int32)
+            if pieces:
+                flat = torch.cat(pieces)
+                with wait(self.stats, flat):
+                    merged = flat.cpu().numpy()
             return cm.emit_windows_arrays(packed, merged, merged.shape[0])
         if cm.plan.mode == "sampled":
             while True:
@@ -1318,22 +1404,24 @@ class Matcher:
         idx2d, aux2d = self._shard_prefixes((idx, aux), n_max)
         return merge_shard_buffers(idx2d, aux2d, counts_np)
 
-    @staticmethod
-    def _shard_counts(counts, gstats):
+    def _shard_counts(self, counts, gstats):
         """One fetch of a sharded launch's counts: ``(counts [n_shards]
         numpy, the worst shard's count)`` (the retry decision)."""
-        head = torch.cat([gstats, counts]).cpu().numpy()
+        head = torch.cat([gstats, counts])
+        with wait(self.stats, head):
+            head = head.cpu().numpy()
         return head[2:], int(head[1])
 
-    @staticmethod
-    def _shard_prefixes(bufs, width: int):
+    def _shard_prefixes(self, bufs, width: int):
         """The first ``width`` slots of each shard of each ``[n_shards,
         cap]`` buffer, in one fetch: numpy ``[n_shards, width]`` arrays
         (``width`` is the worst shard's count, so every shard's entries
         are there)."""
         n_sh = bufs[0].shape[0]
         flat = torch.cat([b[:, :width].reshape(-1) for b in bufs])
-        return tuple(flat.cpu().numpy().reshape(len(bufs), n_sh, width))
+        with wait(self.stats, flat):
+            flat = flat.cpu().numpy()
+        return tuple(flat.reshape(len(bufs), n_sh, width))
 
     def _arrays_result(self, n_bytes, docs_a, ends_a, pids_a, find_all) -> dict:
         if not find_all and docs_a.shape[0]:

@@ -38,6 +38,7 @@ from ..core.tables import CompiledAutomaton
 from ..ops.filter_torch import GRAM_BASE, KNUTH
 from ..ops.matches import PackedRows
 from ..utils import next_pow2 as _next_pow2
+from ..utils.profiling import span, wait
 
 
 def _next_cap(n: int) -> int:
@@ -403,133 +404,143 @@ def plan_cascade(
     auto: CompiledAutomaton,
     config: ScanConfig,
 ) -> CascadePlan:
-    if not patterns:
-        return CascadePlan(False, "no patterns")
-    longs = [p for p in patterns if len(p) >= config.cascade_min_q]
-    shorts = tuple(p for p in patterns if len(p) < config.cascade_min_q)
-    if len(shorts) > config.cascade_max_shorts:
-        return CascadePlan(
-            False, f"{len(shorts)} short patterns (> {config.cascade_max_shorts})"
-        )
-    log2_bits = config.cascade_log2_bloom_bits
-    if not longs:
-        return CascadePlan(
-            True, "shorts-only", q=0, shorts=shorts, min_long_len=0,
-            bloom_words=np.zeros((0, 1), np.int32), own_pat=_own_pat(auto),
-        )
-    min_long = min(len(p) for p in longs)
-
-    if config.cascade_mode in ("auto", "sampled"):
-        choice = _plan_sampled(longs, auto, config, min_long)
-        if choice is not None and len(longs) * choice["stride"] <= _ENUM_CAP:
-            q, s = choice["q"], choice["stride"]
-            log2_w = choice["log2_words"]
-            salts = (0x85EBCA6B, 0xC2B2AE35)[: choice["n_probes"]]
-
-            codes, aligns = _alignment_gram_codes(longs, q, s)
-            bits = np.uint32(1) << aligns.astype(np.uint32)
-            words = np.zeros(1 << log2_w, dtype=np.uint32)
-            for salt in salts:
-                h = (codes ^ np.uint32(salt)) * np.uint32(KNUTH)
-                widx = (h >> np.uint32(32 - log2_w)).astype(np.int64)
-                native.scatter_or(words, widx, bits)
-            # exact candidate-density estimate from the built filter
-            n_distinct = _sorted_distinct(codes).shape[0]
-            _, hit_rate = _sampled_cost(
-                q, s, n_distinct, log2_w, len(salts),
-                max(int(auto.used_bytes.shape[0]), 1), auto.max_len,
-            )
-            density = hit_rate / s
-            if density <= config.cascade_max_cand_density:
-                vmem = _plan_vmem_bloom(codes, aligns, len(longs), s, config)
-                prefix = _plan_prefix_bloom(
-                    longs, min_long, config.cascade_prefix_len
-                )
-                words2 = None
-                if codes.shape[0] >= WORDS2_MIN_ENTRIES:
-                    # 32-bit code space saturates: ~n/2^32 of random
-                    # grams equal a true entry CODE and pass every salt;
-                    # a second-family bloom makes that (n/2^32)^2
-                    from ..ops.filter_torch import GRAM_BASE2, SALT2
-
-                    codes2, _ = _alignment_gram_codes(
-                        longs, q, s, base=GRAM_BASE2
-                    )
-                    w2 = np.zeros(1 << log2_w, dtype=np.uint32)
-                    h2 = (codes2 ^ np.uint32(SALT2)) * np.uint32(KNUTH)
-                    widx2 = (h2 >> np.uint32(32 - log2_w)).astype(np.int64)
-                    native.scatter_or(w2, widx2, bits)
-                    words2 = w2.view(np.int32)
-                return CascadePlan(
-                    True,
-                    f"sampled q={q} stride={s} probes={len(salts)}"
-                    + (
-                        f" vmem k={len(vmem['salts'])}"
-                        if vmem is not None
-                        else ""
-                    ),
-                    q=q,
-                    shorts=shorts,
-                    min_long_len=min_long,
-                    own_pat=_own_pat(auto),
-                    mode="sampled",
-                    stride=s,
-                    log2_words=log2_w,
-                    sampled_salts=salts,
-                    sampled_words=words.view(np.int32),
-                    sampled_words2=words2,
-                    est_cand_density=density,
-                    vmem_log2_rows=vmem["log2_rows"] if vmem else 0,
-                    vmem_salts=vmem["salts"] if vmem else (),
-                    vmem_words=vmem["words"] if vmem else None,
-                    vmem_pack=vmem["pack"] if vmem else 1,
-                    vmem_est_stray=vmem["stray"] if vmem else 0.0,
-                    prefix_words=prefix["words"],
-                    prefix_salts=prefix["salts"],
-                    prefix_log2=prefix["log2"],
-                    prefix_len=prefix["len"],
-                )
-        if config.cascade_mode == "sampled":
+    with span("plan", needles=len(patterns)):
+        if not patterns:
+            return CascadePlan(False, "no patterns")
+        longs = [p for p in patterns if len(p) >= config.cascade_min_q]
+        shorts = tuple(p for p in patterns if len(p) < config.cascade_min_q)
+        if len(shorts) > config.cascade_max_shorts:
             return CascadePlan(
-                False, "no viable sampled configuration for this pattern set"
+                False,
+                f"{len(shorts)} short patterns "
+                f"(> {config.cascade_max_shorts})",
             )
-    q = min(8, min_long)
-    # stage offsets: gram windows fully inside every long pattern
-    offs = {0}
-    if min_long - q >= 1:
-        offs.add(min_long - q)
-    if min_long - q >= 2:
-        offs.add((min_long - q) // 2)
-    offsets = tuple(sorted(offs))
-    # bloom fill check: a saturated filter passes everything — not worth it
-    if len(longs) > (1 << log2_bits) * config.cascade_max_fill:
+        log2_bits = config.cascade_log2_bloom_bits
+        if not longs:
+            return CascadePlan(
+                True, "shorts-only", q=0, shorts=shorts, min_long_len=0,
+                bloom_words=np.zeros((0, 1), np.int32), own_pat=_own_pat(auto),
+            )
+        min_long = min(len(p) for p in longs)
+
+        if config.cascade_mode in ("auto", "sampled"):
+            choice = _plan_sampled(longs, auto, config, min_long)
+            if (choice is not None
+                    and len(longs) * choice["stride"] <= _ENUM_CAP):
+                q, s = choice["q"], choice["stride"]
+                log2_w = choice["log2_words"]
+                salts = (0x85EBCA6B, 0xC2B2AE35)[: choice["n_probes"]]
+
+                codes, aligns = _alignment_gram_codes(longs, q, s)
+                bits = np.uint32(1) << aligns.astype(np.uint32)
+                words = np.zeros(1 << log2_w, dtype=np.uint32)
+                for salt in salts:
+                    h = (codes ^ np.uint32(salt)) * np.uint32(KNUTH)
+                    widx = (h >> np.uint32(32 - log2_w)).astype(np.int64)
+                    native.scatter_or(words, widx, bits)
+                # exact candidate-density estimate from the built filter
+                n_distinct = _sorted_distinct(codes).shape[0]
+                _, hit_rate = _sampled_cost(
+                    q, s, n_distinct, log2_w, len(salts),
+                    max(int(auto.used_bytes.shape[0]), 1), auto.max_len,
+                )
+                density = hit_rate / s
+                if density <= config.cascade_max_cand_density:
+                    vmem = _plan_vmem_bloom(codes, aligns, len(longs), s,
+                                            config)
+                    prefix = _plan_prefix_bloom(
+                        longs, min_long, config.cascade_prefix_len
+                    )
+                    words2 = None
+                    if codes.shape[0] >= WORDS2_MIN_ENTRIES:
+                        # 32-bit code space saturates: ~n/2^32 of random
+                        # grams equal a true entry CODE and pass every salt;
+                        # a second-family bloom makes that (n/2^32)^2
+                        from ..ops.filter_torch import GRAM_BASE2, SALT2
+
+                        codes2, _ = _alignment_gram_codes(
+                            longs, q, s, base=GRAM_BASE2
+                        )
+                        w2 = np.zeros(1 << log2_w, dtype=np.uint32)
+                        h2 = (codes2 ^ np.uint32(SALT2)) * np.uint32(KNUTH)
+                        widx2 = (h2 >> np.uint32(32 - log2_w)).astype(np.int64)
+                        native.scatter_or(w2, widx2, bits)
+                        words2 = w2.view(np.int32)
+                    return CascadePlan(
+                        True,
+                        f"sampled q={q} stride={s} probes={len(salts)}"
+                        + (
+                            f" vmem k={len(vmem['salts'])}"
+                            if vmem is not None
+                            else ""
+                        ),
+                        q=q,
+                        shorts=shorts,
+                        min_long_len=min_long,
+                        own_pat=_own_pat(auto),
+                        mode="sampled",
+                        stride=s,
+                        log2_words=log2_w,
+                        sampled_salts=salts,
+                        sampled_words=words.view(np.int32),
+                        sampled_words2=words2,
+                        est_cand_density=density,
+                        vmem_log2_rows=vmem["log2_rows"] if vmem else 0,
+                        vmem_salts=vmem["salts"] if vmem else (),
+                        vmem_words=vmem["words"] if vmem else None,
+                        vmem_pack=vmem["pack"] if vmem else 1,
+                        vmem_est_stray=vmem["stray"] if vmem else 0.0,
+                        prefix_words=prefix["words"],
+                        prefix_salts=prefix["salts"],
+                        prefix_log2=prefix["log2"],
+                        prefix_len=prefix["len"],
+                    )
+            if config.cascade_mode == "sampled":
+                return CascadePlan(
+                    False,
+                    "no viable sampled configuration for this pattern set",
+                )
+        q = min(8, min_long)
+        # stage offsets: gram windows fully inside every long pattern
+        offs = {0}
+        if min_long - q >= 1:
+            offs.add(min_long - q)
+        if min_long - q >= 2:
+            offs.add((min_long - q) // 2)
+        offsets = tuple(sorted(offs))
+        # bloom fill check: a saturated filter passes everything — not
+        # worth it
+        if len(longs) > (1 << log2_bits) * config.cascade_max_fill:
+            return CascadePlan(
+                False,
+                f"{len(longs)} long patterns saturate a "
+                f"2^{log2_bits}-bit bloom",
+            )
+        bc = auto.byte_class
+        C = auto.n_classes
+        salts = tuple(0x9E3779B9 * (s + 1) & 0xFFFFFFFF
+                      for s in range(len(offsets)))
+        words = np.zeros((len(offsets), (1 << log2_bits) // 32),
+                         dtype=np.uint32)
+        for s, (off, salt) in enumerate(zip(offsets, salts)):
+            for p in longs:
+                cls = bc[np.frombuffer(p, np.uint8)[off : off + q]]
+                code = _gram_code_u32(cls, C)
+                h = ((code ^ salt) * KNUTH) & 0xFFFFFFFF
+                slot = h >> (32 - log2_bits)
+                words[s, slot >> 5] |= np.uint32(1) << np.uint32(slot & 31)
         return CascadePlan(
-            False,
-            f"{len(longs)} long patterns saturate a 2^{log2_bits}-bit bloom",
+            True,
+            "ok",
+            q=q,
+            offsets=offsets,
+            salts=salts,
+            log2_bits=log2_bits,
+            bloom_words=words.view(np.int32),
+            shorts=shorts,
+            min_long_len=min_long,
+            own_pat=_own_pat(auto),
         )
-    bc = auto.byte_class
-    C = auto.n_classes
-    salts = tuple(0x9E3779B9 * (s + 1) & 0xFFFFFFFF for s in range(len(offsets)))
-    words = np.zeros((len(offsets), (1 << log2_bits) // 32), dtype=np.uint32)
-    for s, (off, salt) in enumerate(zip(offsets, salts)):
-        for p in longs:
-            cls = bc[np.frombuffer(p, np.uint8)[off : off + q]]
-            code = _gram_code_u32(cls, C)
-            h = ((code ^ salt) * KNUTH) & 0xFFFFFFFF
-            slot = h >> (32 - log2_bits)
-            words[s, slot >> 5] |= np.uint32(1) << np.uint32(slot & 31)
-    return CascadePlan(
-        True,
-        "ok",
-        q=q,
-        offsets=offsets,
-        salts=salts,
-        log2_bits=log2_bits,
-        bloom_words=words.view(np.int32),
-        shorts=shorts,
-        min_long_len=min_long,
-        own_pat=_own_pat(auto),
-    )
 
 
 class CascadeModel:
@@ -863,19 +874,23 @@ class CascadeModel:
         any stage retries with that capacity grown."""
         cap_a = max(self._cap_hits, 256)
         cap_b = self._cap_flagged
-        while True:
-            cells, n, nf, nc = launch(cap_a, cap_b)
-            if n <= cap_a and nf <= cap_b and nc <= self._cap_coarse:
-                break
+        cells, n, nf, nc = launch(cap_a, cap_b)
+        while not (n <= cap_a and nf <= cap_b and nc <= self._cap_coarse):
+            stages = []
             if n > cap_a:
                 self._count_retry("filter", n, cap_a)
                 cap_a = _next_cap(n)
+                stages.append("filter")
             if nf > cap_b:
                 self._count_retry("verify", nf, cap_b)
                 cap_b = _next_cap(nf)
+                stages.append("verify")
             if nc > self._cap_coarse:
                 self._count_retry("coarse", nc, self._cap_coarse)
                 self._grow_cap_coarse(nc)
+                stages.append("coarse")
+            with span("retry", stage="+".join(stages)):
+                cells, n, nf, nc = launch(cap_a, cap_b)
         self._cap_hits = max(256, _next_cap(n + n // 4))
         self._cap_flagged = cap_b
         self._decay_cap_coarse(nc)
@@ -963,78 +978,81 @@ class CascadeModel:
         verifier (:func:`verify_windows_records`, or
         :func:`verify_windows_records_compressed` on a compressed table),
         as the reference does."""
-        from ..ops.filter_torch import (
-            records_chain_vmem, verify_windows_records,
-            verify_windows_records_compressed,
-        )
-
-        dd = self.dense_model.device_arrays
-        dev = self.device_arrays
-        p = self.plan
-        comp = self._compressed
-        win = dict(n_classes=self.auto.n_classes, stride=p.stride,
-                   win_len=self.win_len, capacity=cap_r, n_hits=cap_a)
-        if self.bloom_impl() != "pallas_vmem":
-            idx, _lw, _sw, n_d, nc_d = self.scan_hits_sampled(
-                chunks_d, lengths_d, cap_a, phase_g=phase_g
+        with span("chain", card=chunks_d.device, rows=chunks_d.shape[0],
+                  row_len=chunks_d.shape[1]):
+            from ..ops.filter_torch import (
+                records_chain_vmem, verify_windows_records,
+                verify_windows_records_compressed,
             )
+
+            dd = self.dense_model.device_arrays
+            dev = self.device_arrays
+            p = self.plan
+            comp = self._compressed
+            win = dict(n_classes=self.auto.n_classes, stride=p.stride,
+                       win_len=self.win_len, capacity=cap_r, n_hits=cap_a)
+            if self.bloom_impl() != "pallas_vmem":
+                idx, _lw, _sw, n_d, nc_d = self.scan_hits_sampled(
+                    chunks_d, lengths_d, cap_a, phase_g=phase_g
+                )
+                if comp:
+                    (rec_cell, rec_pack,
+                     nr_d) = verify_windows_records_compressed(
+                        dd["dense_flat"], dd["meta"], dd["exc_target"],
+                        dev["byte_class"], dev["used_bytes"], chunks_d,
+                        lengths_d, emit_from_d, idx, dd["dense_final_start"],
+                        dd["final_start"], n_dense=self.auto.n_dense, **win,
+                    )
+                else:
+                    rec_cell, rec_pack, nr_d = verify_windows_records(
+                        dd["table_flat"], dev["byte_class"], dev["used_bytes"],
+                        chunks_d, lengths_d, emit_from_d, idx,
+                        dd["final_start"], **win,
+                    )
+                return rec_cell, rec_pack, n_d, nr_d, nc_d
+            use_k2 = self.records2_ok
             if comp:
-                rec_cell, rec_pack, nr_d = verify_windows_records_compressed(
-                    dd["dense_flat"], dd["meta"], dd["exc_target"],
-                    dev["byte_class"], dev["used_bytes"], chunks_d,
-                    lengths_d, emit_from_d, idx, dd["dense_final_start"],
-                    dd["final_start"], n_dense=self.auto.n_dense, **win,
-                )
+                tflat = dd["dense_flat"]
+            elif use_k2:
+                tflat = self.verify2_table_dev
             else:
-                rec_cell, rec_pack, nr_d = verify_windows_records(
-                    dd["table_flat"], dev["byte_class"], dev["used_bytes"],
-                    chunks_d, lengths_d, emit_from_d, idx,
-                    dd["final_start"], **win,
-                )
-            return rec_cell, rec_pack, n_d, nr_d, nc_d
-        use_k2 = self.records2_ok
-        if comp:
-            tflat = dd["dense_flat"]
-        elif use_k2:
-            tflat = self.verify2_table_dev
-        else:
-            tflat = dd["table_flat"]
-        extra = dict(
-            compressed=True, meta=dd["meta"], exc_target=dd["exc_target"],
-            dense_final_start=dd["dense_final_start"],
-            n_dense=self.auto.n_dense,
-        ) if comp else dict(use_k2=use_k2)
-        return records_chain_vmem(
-            dev["vmem_table"],
-            dev["sampled_words"],
-            dev.get("prefix_words"),
-            tflat,
-            dev["byte_class"],
-            dev["used_bytes"],
-            chunks_d,
-            lengths_d,
-            emit_from_d,
-            dev["min_long_len"],
-            dd["final_start"],
-            phase_g,
-            q=p.q,
-            stride=p.stride,
-            log2_rows=p.vmem_log2_rows,
-            salts=p.vmem_salts,
-            pack=p.vmem_pack,
-            log2_words=p.log2_words,
-            fine_salts=p.sampled_salts,
-            shorts=p.shorts,
-            cap_a=cap_a,
-            cap_coarse=self._cap_coarse,
-            prefix_salts=p.prefix_salts if "prefix_words" in dev else (),
-            prefix_log2=p.prefix_log2,
-            prefix_len=p.prefix_len,
-            n_classes=self.auto.n_classes,
-            win_len=self.win_len,
-            cap_r=cap_r,
-            **extra,
-        )
+                tflat = dd["table_flat"]
+            extra = dict(
+                compressed=True, meta=dd["meta"], exc_target=dd["exc_target"],
+                dense_final_start=dd["dense_final_start"],
+                n_dense=self.auto.n_dense,
+            ) if comp else dict(use_k2=use_k2)
+            return records_chain_vmem(
+                dev["vmem_table"],
+                dev["sampled_words"],
+                dev.get("prefix_words"),
+                tflat,
+                dev["byte_class"],
+                dev["used_bytes"],
+                chunks_d,
+                lengths_d,
+                emit_from_d,
+                dev["min_long_len"],
+                dd["final_start"],
+                phase_g,
+                q=p.q,
+                stride=p.stride,
+                log2_rows=p.vmem_log2_rows,
+                salts=p.vmem_salts,
+                pack=p.vmem_pack,
+                log2_words=p.log2_words,
+                fine_salts=p.sampled_salts,
+                shorts=p.shorts,
+                cap_a=cap_a,
+                cap_coarse=self._cap_coarse,
+                prefix_salts=p.prefix_salts if "prefix_words" in dev else (),
+                prefix_log2=p.prefix_log2,
+                prefix_len=p.prefix_len,
+                n_classes=self.auto.n_classes,
+                win_len=self.win_len,
+                cap_r=cap_r,
+                **extra,
+            )
 
     def _device_inputs(self, packed: PackedRows, dev_inputs):
         """``(chunks, lengths, emit_from, phase_g)`` on the device: the
@@ -1062,8 +1080,6 @@ class CascadeModel:
 
         ``dev_inputs``: optional ``(chunks, lengths, emit_from[,
         phase_g])`` already on the device (resident-corpus callers)."""
-        import torch
-
         if not (self.plan.mode == "sampled" and self.device_verify_ok):
             idx_np, n = self.candidates_np(packed, capacity, dev_inputs)
             return self.verify_arrays(packed, idx_np, n)
@@ -1078,27 +1094,38 @@ class CascadeModel:
                     chunks_d, lengths_d, emit_from_d, cap_a, cap_r,
                     phase_g=phase_g,
                 )
-                n, nr, nc = torch.stack([n_d, nr_d, nc_d]).tolist()
-                return (rc, rp), n, nr, nc
+                return (rc, rp), *self._fetch_counts(n_d, nr_d, nc_d)
 
             (rc, rp), nr = self.adaptive_chain(launch_r)
             if nr == 0:
                 return z, z, z
-            return self.emit_records_arrays(
-                packed, rc[:nr].cpu().numpy(), rp[:nr].cpu().numpy(), nr
-            )
+            rc, rp = rc[:nr], rp[:nr]
+            with wait(self.stats, rc):
+                rc = rc.cpu().numpy()
+            with wait(self.stats, rp):
+                rp = rp.cpu().numpy()
+            return self.emit_records_arrays(packed, rc, rp, nr)
 
         def launch(cap_a, cap_b):
             cells, n_d, nf_d, nc_d = self.launch_device(
                 chunks_d, lengths_d, cap_a, cap_b, phase_g=phase_g,
             )
-            n, nf, nc = torch.stack([n_d, nf_d, nc_d]).tolist()
-            return cells, n, nf, nc
+            return (cells, *self._fetch_counts(n_d, nf_d, nc_d))
 
         cells, nf = self.adaptive_chain(launch)
         if nf == 0:
             return z, z, z
-        return self.emit_windows_arrays(packed, cells[:nf].cpu().numpy(), nf)
+        cells = cells[:nf]
+        with wait(self.stats, cells):
+            cells = cells.cpu().numpy()
+        return self.emit_windows_arrays(packed, cells, nf)
+
+    def _fetch_counts(self, *counts):
+        """The device counts of one launch as host ints, in one fetch."""
+        import torch
+
+        with wait(self.stats, *counts):
+            return torch.stack(counts).tolist()
 
     def run(self, packed: PackedRows, capacity: int, dev_inputs=None):
         """Iterator facade over :meth:`run_arrays`."""
@@ -1117,73 +1144,74 @@ class CascadeModel:
         overflowed their record slots arrive as sentinel records and are
         re-walked exactly via :meth:`emit_windows_arrays` (their normal
         records are discarded to avoid double emission)."""
-        from ..ops.filter_torch import REC_OVERFLOW_J
-        from ..ops.matches import csr_expand
+        with span("expand", records=n_rec):
+            from ..ops.filter_torch import REC_OVERFLOW_J
+            from ..ops.matches import csr_expand
 
-        z = np.zeros(0, np.int64)
-        if n_rec == 0:
-            return z, z, z
-        auto = self.auto
-        s = self.plan.stride
-        L = packed.row_len
-        M = -(-L // s)
-        cell = rec_cell[:n_rec].astype(np.int64)
-        pack = rec_pack[:n_rec].astype(np.int64)
-        j = pack & 31
-        sentinel = j == REC_OVERFLOW_J
-        parts: List[np.ndarray] = []
-        if sentinel.any():
-            over_cells = np.unique(cell[sentinel])
-            keep_n = ~np.isin(cell, over_cells)
-            docs_o, ends_o, pids_o = self.emit_windows_arrays(
-                packed, over_cells, over_cells.shape[0]
-            )
-            cell, pack, j = cell[keep_n], pack[keep_n], j[keep_n]
-        else:
-            docs_o = None
-        if cell.shape[0]:
-            state = pack >> 5
-            b = cell // M
-            m = cell % M
-            e = m * s - (s - 1) + j  # end-1 byte index within the row
-            rec_of, pids = csr_expand(auto, state)
-            src_b = b[rec_of]
-            src_e = e[rec_of]
-            src_m = m[rec_of]
-            ln = auto.pat_lens[pids].astype(np.int64)
-            t = src_e + 1 - ln
-            short_limit = self.config.cascade_min_q
-            owner = np.where(ln >= short_limit, -(-t // s), t // s)
-            keep = owner == src_m
-            if keep.any():
-                parts.append(
-                    np.stack(
-                        [src_b[keep], src_e[keep] + 1, t[keep], pids[keep]]
-                    )
+            z = np.zeros(0, np.int64)
+            if n_rec == 0:
+                return z, z, z
+            auto = self.auto
+            s = self.plan.stride
+            L = packed.row_len
+            M = -(-L // s)
+            cell = rec_cell[:n_rec].astype(np.int64)
+            pack = rec_pack[:n_rec].astype(np.int64)
+            j = pack & 31
+            sentinel = j == REC_OVERFLOW_J
+            parts: List[np.ndarray] = []
+            if sentinel.any():
+                over_cells = np.unique(cell[sentinel])
+                keep_n = ~np.isin(cell, over_cells)
+                docs_o, ends_o, pids_o = self.emit_windows_arrays(
+                    packed, over_cells, over_cells.shape[0]
                 )
-        if not parts:
-            if docs_o is not None:
-                return docs_o, ends_o, pids_o
-            return z, z, z
-        arr = np.concatenate(parts, axis=1)
-        order = np.lexsort((arr[2], arr[1], arr[0]))
-        docs = packed.doc_id[arr[0, order]].astype(np.int64)
-        ends = packed.global_off[arr[0, order]] + arr[1, order]
-        pids_n = arr[3, order]
-        if docs_o is not None and docs_o.shape[0]:
-            # merge the (rare) overflow emissions by (doc, end, start)
-            starts_n = ends - auto.pat_lens[pids_n]
-            starts_o = ends_o - auto.pat_lens[pids_o]
-            allc = np.concatenate
-            docs, ends, pids_all, starts = (
-                allc([docs, docs_o]),
-                allc([ends, ends_o]),
-                allc([pids_n, pids_o]),
-                allc([starts_n, starts_o]),
-            )
-            o2 = np.lexsort((starts, ends, docs))
-            return docs[o2], ends[o2], pids_all[o2]
-        return docs, ends, pids_n
+                cell, pack, j = cell[keep_n], pack[keep_n], j[keep_n]
+            else:
+                docs_o = None
+            if cell.shape[0]:
+                state = pack >> 5
+                b = cell // M
+                m = cell % M
+                e = m * s - (s - 1) + j  # end-1 byte index within the row
+                rec_of, pids = csr_expand(auto, state)
+                src_b = b[rec_of]
+                src_e = e[rec_of]
+                src_m = m[rec_of]
+                ln = auto.pat_lens[pids].astype(np.int64)
+                t = src_e + 1 - ln
+                short_limit = self.config.cascade_min_q
+                owner = np.where(ln >= short_limit, -(-t // s), t // s)
+                keep = owner == src_m
+                if keep.any():
+                    parts.append(
+                        np.stack(
+                            [src_b[keep], src_e[keep] + 1, t[keep], pids[keep]]
+                        )
+                    )
+            if not parts:
+                if docs_o is not None:
+                    return docs_o, ends_o, pids_o
+                return z, z, z
+            arr = np.concatenate(parts, axis=1)
+            order = np.lexsort((arr[2], arr[1], arr[0]))
+            docs = packed.doc_id[arr[0, order]].astype(np.int64)
+            ends = packed.global_off[arr[0, order]] + arr[1, order]
+            pids_n = arr[3, order]
+            if docs_o is not None and docs_o.shape[0]:
+                # merge the (rare) overflow emissions by (doc, end, start)
+                starts_n = ends - auto.pat_lens[pids_n]
+                starts_o = ends_o - auto.pat_lens[pids_o]
+                allc = np.concatenate
+                docs, ends, pids_all, starts = (
+                    allc([docs, docs_o]),
+                    allc([ends, ends_o]),
+                    allc([pids_n, pids_o]),
+                    allc([starts_n, starts_o]),
+                )
+                o2 = np.lexsort((starts, ends, docs))
+                return docs[o2], ends[o2], pids_all[o2]
+            return docs, ends, pids_n
 
     def emit_windows_arrays(
         self, packed: PackedRows, win_cells: np.ndarray, n_flagged: int
@@ -1415,7 +1443,7 @@ class CascadeModel:
                 idx, lw, sw, n_d, nc_d = self.scan_hits_sampled(
                     chunks_d, lengths_d, capacity, phase_g=phase_g
                 )
-                n, nc = torch.stack([n_d, nc_d]).tolist()
+                n, nc = self._fetch_counts(n_d, nc_d)
                 if n <= capacity and nc <= self._cap_coarse:
                     break
                 if n > capacity:
@@ -1425,18 +1453,22 @@ class CascadeModel:
                     self._count_retry("coarse", nc, self._cap_coarse)
                     self._grow_cap_coarse(nc)
             self._decay_cap_coarse(nc)
-            flat = torch.cat([idx[:n], lw[:n], sw[:n]]).cpu().numpy()
+            flat = torch.cat([idx[:n], lw[:n], sw[:n]])
+            with wait(self.stats, flat):
+                flat = flat.cpu().numpy()
             return self.expand_hits(
                 flat[:n], flat[n : 2 * n], flat[2 * n :], n,
                 packed.row_len, packed.lengths,
             )
         while True:
             idx, n_d = self.scan_candidates(chunks_d, lengths_d, capacity)
-            n = int(n_d)
+            (n,) = self._fetch_counts(n_d)
             if n <= capacity:
                 break
             capacity = _next_cap(n)
-        return idx[:n].cpu().numpy(), n
+        idx = idx[:n]
+        with wait(self.stats, idx):
+            return idx.cpu().numpy(), n
 
     def scan_candidates(self, chunks, lengths, capacity: int):
         """One launch of the anchored candidate filter: ``(start_idx

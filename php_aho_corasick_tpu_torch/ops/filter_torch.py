@@ -34,6 +34,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .scan_torch import (
     INT32_MAX,
     _classes,
@@ -231,24 +232,27 @@ def filter_hits_sampled(
     INT32_MAX-padded, long_word, short_word, n_hits)`` as device values;
     retry with a bigger ``capacity`` when ``n_hits`` exceeds it.  It has
     no slot capacity, so it serves any density."""
-    B, L = chunks.shape
-    M = -(-L // stride)
-    code_u = u32(sampled_gram_codes(chunks, q, stride))
-    w = None
-    for salt in salts:
-        probe = _salted_probe(words, code_u, salt, log2_words)
-        w = probe if w is None else (w & probe)
-    w = torch.where(min_long_len > 0, w, 0)
-    if shorts:
-        sw = _short_start_words(chunks, lengths, shorts, stride, M)
-    else:
-        sw = torch.zeros_like(w)
-    w, sw = w.reshape(-1), sw.reshape(-1)
-    idx, n_hits = blocked_nonzero((w | sw) != 0, capacity)
-    safe = torch.clamp(idx, max=B * M - 1).long()
-    valid = idx < INT32_MAX
-    return (idx, torch.where(valid, w[safe], 0),
-            torch.where(valid, sw[safe], 0), n_hits)
+    with span("filter", rows=chunks.shape[0], row_len=chunks.shape[1],
+              q=q, stride=stride, bloom_bytes=words.numel() * 4,
+              probe_ops=6):
+        B, L = chunks.shape
+        M = -(-L // stride)
+        code_u = u32(sampled_gram_codes(chunks, q, stride))
+        w = None
+        for salt in salts:
+            probe = _salted_probe(words, code_u, salt, log2_words)
+            w = probe if w is None else (w & probe)
+        w = torch.where(min_long_len > 0, w, 0)
+        if shorts:
+            sw = _short_start_words(chunks, lengths, shorts, stride, M)
+        else:
+            sw = torch.zeros_like(w)
+        w, sw = w.reshape(-1), sw.reshape(-1)
+        idx, n_hits = blocked_nonzero((w | sw) != 0, capacity)
+        safe = torch.clamp(idx, max=B * M - 1).long()
+        valid = idx < INT32_MAX
+        return (idx, torch.where(valid, w[safe], 0),
+                torch.where(valid, sw[safe], 0), n_hits)
 
 
 def filter_hits_sampled_grouped(
@@ -293,36 +297,43 @@ def filter_hits_sampled_grouped(
     when it exceeds it)."""
     from .filter_cuda import grouped_take_extract, grouped_take_refine
 
-    B, L = chunks.shape
-    if not (stride % 4 == 0 and L % stride == 0):
-        raise ValueError("grouped take gate: stride % 4 == 0 and stride | L")
-    M = L // stride
-    spc = stride // 4
-    wc = pack_corpus_words(chunks)
-    sw = (_short_start_words(chunks, lengths, shorts, stride, M) if shorts
-          else None)
-    mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
-    r_s, w_s, swo_s, _, cnt = grouped_take_extract(
-        words, wc, sw, min_long_len, words2, q=q, spc=spc,
-        log2_words=log2_words, salts=tuple(salts), mpr=mpr, block_r=block_r,
-    )
-    # an extracted slot (r_s >= 0) lies in the grid; it lives while a
-    # word survived the re-probes
-    alive = (r_s >= 0) & ((w_s | swo_s) != 0)
-    slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
-    prefix_on = (
-        prefix_words is not None
-        and stride <= 32
-        and 4 <= prefix_len <= 20
-        and bool(prefix_salts)
-    )
-    idx, lw, swo = grouped_take_refine(
-        slot, r_s, w_s, swo_s, wc, prefix_words if prefix_on else None,
-        mpr=mpr, block_r=block_r, spc=spc,
-        prefix_salts=tuple(prefix_salts), prefix_log2=prefix_log2,
-        prefix_len=prefix_len,
-    )
-    return idx, lw, swo, n_final, cnt.max()
+    bloom_bytes = words.numel() * 4
+    if words2 is not None:
+        bloom_bytes += words2.numel() * 4
+    with span("filter", rows=chunks.shape[0], row_len=chunks.shape[1],
+              q=q, stride=stride, bloom_bytes=bloom_bytes, probe_ops=6):
+        B, L = chunks.shape
+        if not (stride % 4 == 0 and L % stride == 0):
+            raise ValueError(
+                "grouped take gate: stride % 4 == 0 and stride | L")
+        M = L // stride
+        spc = stride // 4
+        wc = pack_corpus_words(chunks)
+        sw = (_short_start_words(chunks, lengths, shorts, stride, M)
+              if shorts else None)
+        mpr = min(128, max(8, -(-cap_coarse // 8) * 8))
+        r_s, w_s, swo_s, _, cnt = grouped_take_extract(
+            words, wc, sw, min_long_len, words2, q=q, spc=spc,
+            log2_words=log2_words, salts=tuple(salts), mpr=mpr,
+            block_r=block_r,
+        )
+        # an extracted slot (r_s >= 0) lies in the grid; it lives while a
+        # word survived the re-probes
+        alive = (r_s >= 0) & ((w_s | swo_s) != 0)
+        slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
+        prefix_on = (
+            prefix_words is not None
+            and stride <= 32
+            and 4 <= prefix_len <= 20
+            and bool(prefix_salts)
+        )
+        idx, lw, swo = grouped_take_refine(
+            slot, r_s, w_s, swo_s, wc, prefix_words if prefix_on else None,
+            mpr=mpr, block_r=block_r, spc=spc,
+            prefix_salts=tuple(prefix_salts), prefix_log2=prefix_log2,
+            prefix_len=prefix_len,
+        )
+        return idx, lw, swo, n_final, cnt.max()
 
 
 def fused_phase_grid(
@@ -458,67 +469,71 @@ def filter_hits_sampled_vmem(
     ascending)."""
     from .filter_cuda import fused_sampled_extract
 
-    B, L = chunks.shape
-    M = -(-L // stride)
-    if not (stride % 4 == 0 and L % stride == 0 and cap_coarse <= 128):
-        return _filter_hits_sampled_vmem_rows(
-            table, words, chunks, lengths, min_long_len,
+    with span("filter", rows=chunks.shape[0], row_len=chunks.shape[1],
+              q=q, stride=stride, bloom_bytes=table.numel() * 4,
+              probe_ops=12):
+        B, L = chunks.shape
+        M = -(-L // stride)
+        if not (stride % 4 == 0 and L % stride == 0 and cap_coarse <= 128):
+            return _filter_hits_sampled_vmem_rows(
+                table, words, chunks, lengths, min_long_len,
+                q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
+                log2_words=log2_words, fine_salts=fine_salts, shorts=shorts,
+                capacity=capacity, cap_coarse=cap_coarse,
+            )
+        dev = chunks.device
+        args, kw = fused_extract_args(
+            table, chunks, lengths, min_long_len,
             q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
-            log2_words=log2_words, fine_salts=fine_salts, shorts=shorts,
-            capacity=capacity, cap_coarse=cap_coarse,
+            shorts=shorts, cap_coarse=cap_coarse, prefix_words=prefix_words,
+            prefix_salts=prefix_salts, prefix_log2=prefix_log2,
+            prefix_len=prefix_len, phase_g=phase_g,
         )
-    dev = chunks.device
-    args, kw = fused_extract_args(
-        table, chunks, lengths, min_long_len,
-        q=q, stride=stride, log2_rows=log2_rows, salts=salts, pack=pack,
-        shorts=shorts, cap_coarse=cap_coarse, prefix_words=prefix_words,
-        prefix_salts=prefix_salts, prefix_log2=prefix_log2,
-        prefix_len=prefix_len, phase_g=phase_g,
-    )
-    r_s, w_s, swo_s, h_s, cnt = fused_sampled_extract(*args, **kw)
-    prefix_on = kw["prefix_on"]
-    inkernel_refine = kw["prefix_table"] is not None
-    mpr, block_r, n_grid = kw["mpr"], kw["block_r"], kw["n_grid"]
-    R = -(-n_grid // 128)
-    n_blocks = max(1, -(-R // block_r))
+        r_s, w_s, swo_s, h_s, cnt = fused_sampled_extract(*args, **kw)
+        prefix_on = kw["prefix_on"]
+        inkernel_refine = kw["prefix_table"] is not None
+        mpr, block_r, n_grid = kw["mpr"], kw["block_r"], kw["n_grid"]
+        R = -(-n_grid // 128)
+        n_blocks = max(1, -(-R // block_r))
 
-    if inkernel_refine:
-        long_ok = w_s != 0  # refinement already applied in the kernel
-    elif prefix_on:
-        # stage 2a: one prefix-bloom bit probe per single-alignment slot
-        ok = None
-        for salt in prefix_salts:
-            slot = mul32(u32(h_s) ^ salt, KNUTH) >> (32 - prefix_log2)
-            word = prefix_words[slot >> 5].to(torch.int64)
-            bit = (word >> (slot & 31)) & 1
-            ok = bit if ok is None else (ok & bit)
-        v = w_s & ((1 << stride) - 1)
-        single = (v != 0) & ((v & (v - 1)) == 0)
-        long_ok = (w_s != 0) & (torch.logical_not(single) | (ok == 1))
-    else:
-        # stage 2: fine re-probe of the positional bloom (h_s = code)
-        wf = None
-        for salt in fine_salts:
-            probe = _salted_probe(words, u32(h_s), salt, log2_words)
-            wf = probe if wf is None else (wf & probe)
-        w_s = w_s & wf
-        long_ok = w_s != 0
+        if inkernel_refine:
+            long_ok = w_s != 0  # refinement already applied in the kernel
+        elif prefix_on:
+            # stage 2a: one prefix-bloom bit probe per single-alignment slot
+            ok = None
+            for salt in prefix_salts:
+                slot = mul32(u32(h_s) ^ salt, KNUTH) >> (32 - prefix_log2)
+                word = prefix_words[slot >> 5].to(torch.int64)
+                bit = (word >> (slot & 31)) & 1
+                ok = bit if ok is None else (ok & bit)
+            v = w_s & ((1 << stride) - 1)
+            single = (v != 0) & ((v & (v - 1)) == 0)
+            long_ok = (w_s != 0) & (torch.logical_not(single) | (ok == 1))
+        else:
+            # stage 2: fine re-probe of the positional bloom (h_s = code)
+            wf = None
+            for salt in fine_salts:
+                probe = _salted_probe(words, u32(h_s), salt, log2_words)
+                wf = probe if wf is None else (wf & probe)
+            w_s = w_s & wf
+            long_ok = w_s != 0
 
-    nrows = n_blocks * mpr
-    blk = (torch.arange(nrows, dtype=torch.int32, device=dev) // mpr)[:, None]
-    lane = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
-    cell_s = (blk * block_r + r_s) * 128 + lane
-    alive = (r_s >= 0) & (long_ok | (swo_s != 0)) & (cell_s < n_grid)
-    slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
-    tot = nrows * 128
-    safe = torch.clamp(slot, max=tot - 1).long()
-    valid = slot < INT32_MAX
-    idx = torch.where(valid, cell_s.reshape(-1)[safe], INT32_MAX)
-    lw = torch.where(valid, w_s.reshape(-1)[safe], 0)
-    swo = torch.where(valid, swo_s.reshape(-1)[safe], 0)
-    # slot order (block-major), not cell-ascending: window verify treats
-    # slots independently and the host expansion re-orders
-    return idx, lw, swo, n_final, cnt.max()
+        nrows = n_blocks * mpr
+        blk = (torch.arange(nrows, dtype=torch.int32, device=dev)
+               // mpr)[:, None]
+        lane = torch.arange(128, dtype=torch.int32, device=dev)[None, :]
+        cell_s = (blk * block_r + r_s) * 128 + lane
+        alive = (r_s >= 0) & (long_ok | (swo_s != 0)) & (cell_s < n_grid)
+        slot, n_final = blocked_nonzero(alive.reshape(-1), capacity)
+        tot = nrows * 128
+        safe = torch.clamp(slot, max=tot - 1).long()
+        valid = slot < INT32_MAX
+        idx = torch.where(valid, cell_s.reshape(-1)[safe], INT32_MAX)
+        lw = torch.where(valid, w_s.reshape(-1)[safe], 0)
+        swo = torch.where(valid, swo_s.reshape(-1)[safe], 0)
+        # slot order (block-major), not cell-ascending: window verify treats
+        # slots independently and the host expansion re-orders
+        return idx, lw, swo, n_final, cnt.max()
 
 
 def _filter_hits_sampled_vmem_rows(
@@ -694,24 +709,26 @@ def verify_windows_records(
     sentinel for an exact host re-walk).  Returns ``(rec_cell [cap],
     rec_pack [cap], n_rec)`` in slot order; retry when ``n_rec >
     capacity``."""
-    grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
-        chunks, lengths, emit_from, grid_idx, stride, n_hits
-    )
-    W = win_len
-    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
-    dev = chunks.device
-    state = torch.zeros(H, dtype=torch.int32, device=dev)
-    cnt = torch.zeros(H, dtype=torch.int32, device=dev)
-    slots = [torch.zeros(H, dtype=torch.int32, device=dev)
-             for _ in range(VERIFY_KR)]
-    for j in range(W):
-        pos_j = w0 + j
-        valid_j = (pos_j >= 0) & (pos_j < row_len) & active
-        cls_j = torch.where(valid_j, cls[:, j], 0)
-        state = table_flat[state.long() * n_classes + cls_j].to(torch.int32)
-        cnt = _record_step(state, state >= final_start, pos_j, valid_j, j,
-                           row_emit, cnt, slots)
-    return _emit_records(grid_idx, H, cnt, slots, capacity)
+    with span("verify", capacity=capacity, hits=n_hits):
+        grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
+            chunks, lengths, emit_from, grid_idx, stride, n_hits
+        )
+        W = win_len
+        cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+        dev = chunks.device
+        state = torch.zeros(H, dtype=torch.int32, device=dev)
+        cnt = torch.zeros(H, dtype=torch.int32, device=dev)
+        slots = [torch.zeros(H, dtype=torch.int32, device=dev)
+                 for _ in range(VERIFY_KR)]
+        for j in range(W):
+            pos_j = w0 + j
+            valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+            cls_j = torch.where(valid_j, cls[:, j], 0)
+            state = table_flat[state.long() * n_classes + cls_j].to(
+                torch.int32)
+            cnt = _record_step(state, state >= final_start, pos_j, valid_j, j,
+                               row_emit, cnt, slots)
+        return _emit_records(grid_idx, H, cnt, slots, capacity)
 
 
 def verify_windows_records_compressed(
@@ -737,27 +754,28 @@ def verify_windows_records_compressed(
     """:func:`verify_windows_records` over the compressed table: the walk
     is the 3-gather compressed step and finality its two-range
     predicate, with the same record slots and overflow sentinel."""
-    grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
-        chunks, lengths, emit_from, grid_idx, stride, n_hits
-    )
-    W = win_len
-    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
-    dev = chunks.device
-    state = torch.zeros(H, dtype=torch.int32, device=dev)
-    cnt = torch.zeros(H, dtype=torch.int32, device=dev)
-    slots = [torch.zeros(H, dtype=torch.int32, device=dev)
-             for _ in range(VERIFY_KR)]
-    for j in range(W):
-        pos_j = w0 + j
-        valid_j = (pos_j >= 0) & (pos_j < row_len) & active
-        c = torch.where(valid_j, cls[:, j], 0)
-        state = compressed_step(state, c, dense_flat, meta, exc_target,
-                                n_classes, n_dense)
-        fin = compressed_final(state, n_dense, dense_final_start,
-                               final_start)
-        cnt = _record_step(state, fin, pos_j, valid_j, j, row_emit, cnt,
-                           slots)
-    return _emit_records(grid_idx, H, cnt, slots, capacity)
+    with span("verify", capacity=capacity, hits=n_hits):
+        grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
+            chunks, lengths, emit_from, grid_idx, stride, n_hits
+        )
+        W = win_len
+        cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+        dev = chunks.device
+        state = torch.zeros(H, dtype=torch.int32, device=dev)
+        cnt = torch.zeros(H, dtype=torch.int32, device=dev)
+        slots = [torch.zeros(H, dtype=torch.int32, device=dev)
+                 for _ in range(VERIFY_KR)]
+        for j in range(W):
+            pos_j = w0 + j
+            valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+            c = torch.where(valid_j, cls[:, j], 0)
+            state = compressed_step(state, c, dense_flat, meta, exc_target,
+                                    n_classes, n_dense)
+            fin = compressed_final(state, n_dense, dense_final_start,
+                                   final_start)
+            cnt = _record_step(state, fin, pos_j, valid_j, j, row_emit, cnt,
+                               slots)
+        return _emit_records(grid_idx, H, cnt, slots, capacity)
 
 
 def verify_windows_records2(
@@ -782,41 +800,43 @@ def verify_windows_records2(
     rides in the entry's high bits so finals at both positions are
     detected.  Requires ``S < 2**15``; positions outside ``[0, length)``
     contribute class 0 exactly like the 1-step walk."""
-    grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
-        chunks, lengths, emit_from, grid_idx, stride, n_hits
-    )
-    W = win_len
-    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
-    dev = chunks.device
-    smask = (1 << REC2_BITS) - 1
-    C2 = n_classes * n_classes
-    state = torch.zeros(H, dtype=torch.int32, device=dev)
-    cnt = torch.zeros(H, dtype=torch.int32, device=dev)
-    slots = [torch.zeros(H, dtype=torch.int32, device=dev)
-             for _ in range(VERIFY_KR)]
-    for t in range(-(-W // 2)):
-        j1, j2 = 2 * t, 2 * t + 1
-        pos1 = w0 + j1
-        valid1 = (pos1 >= 0) & (pos1 < row_len) & active
-        c1 = torch.where(valid1, cls[:, j1], 0)
-        if j2 < W:
-            pos2 = w0 + j2
-            valid2 = (pos2 >= 0) & (pos2 < row_len) & active
-            c2 = torch.where(valid2, cls[:, j2], 0)
-        else:  # dead half-step: class 0, never emits
-            pos2, valid2, c2 = pos1, torch.zeros_like(valid1), torch.zeros_like(c1)
-        entry = table2_flat[
-            state.long() * C2 + c1.long() * n_classes + c2
-        ].to(torch.int32)
-        s1 = entry >> REC2_BITS
-        s2 = entry & smask
-        cnt = _record_step(s1, s1 >= final_start, pos1, valid1, j1,
-                           row_emit, cnt, slots)
-        if j2 < W:
-            cnt = _record_step(s2, s2 >= final_start, pos2, valid2, j2,
+    with span("verify", capacity=capacity, hits=n_hits):
+        grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
+            chunks, lengths, emit_from, grid_idx, stride, n_hits
+        )
+        W = win_len
+        cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+        dev = chunks.device
+        smask = (1 << REC2_BITS) - 1
+        C2 = n_classes * n_classes
+        state = torch.zeros(H, dtype=torch.int32, device=dev)
+        cnt = torch.zeros(H, dtype=torch.int32, device=dev)
+        slots = [torch.zeros(H, dtype=torch.int32, device=dev)
+                 for _ in range(VERIFY_KR)]
+        for t in range(-(-W // 2)):
+            j1, j2 = 2 * t, 2 * t + 1
+            pos1 = w0 + j1
+            valid1 = (pos1 >= 0) & (pos1 < row_len) & active
+            c1 = torch.where(valid1, cls[:, j1], 0)
+            if j2 < W:
+                pos2 = w0 + j2
+                valid2 = (pos2 >= 0) & (pos2 < row_len) & active
+                c2 = torch.where(valid2, cls[:, j2], 0)
+            else:  # dead half-step: class 0, never emits
+                pos2, valid2, c2 = (pos1, torch.zeros_like(valid1),
+                                    torch.zeros_like(c1))
+            entry = table2_flat[
+                state.long() * C2 + c1.long() * n_classes + c2
+            ].to(torch.int32)
+            s1 = entry >> REC2_BITS
+            s2 = entry & smask
+            cnt = _record_step(s1, s1 >= final_start, pos1, valid1, j1,
                                row_emit, cnt, slots)
-        state = s2
-    return _emit_records(grid_idx, H, cnt, slots, capacity)
+            if j2 < W:
+                cnt = _record_step(s2, s2 >= final_start, pos2, valid2, j2,
+                                   row_emit, cnt, slots)
+            state = s2
+        return _emit_records(grid_idx, H, cnt, slots, capacity)
 
 
 def records_chain_vmem(

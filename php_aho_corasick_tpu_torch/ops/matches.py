@@ -27,6 +27,7 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 
 from ..core.tables import CompiledAutomaton
+from ..utils.profiling import span
 
 ROW_ALIGN = 128
 
@@ -186,15 +187,16 @@ def expand_matches_arrays(
     if n_matches == 0:
         z = np.zeros(0, np.int64)
         return z, z, z
-    L = packed.row_len
-    idx = match_idx[:n_matches]
-    sts = match_state[:n_matches].astype(np.int64)
-    rows = idx // L
-    ts = idx % L
-    end_pos = packed.global_off[rows] + ts + 1
-    docs = packed.doc_id[rows].astype(np.int64)
-    rec_of, pids = csr_expand(auto, sts)
-    return docs[rec_of], end_pos[rec_of], pids
+    with span("expand", records=n_matches):
+        L = packed.row_len
+        idx = match_idx[:n_matches]
+        sts = match_state[:n_matches].astype(np.int64)
+        rows = idx // L
+        ts = idx % L
+        end_pos = packed.global_off[rows] + ts + 1
+        docs = packed.doc_id[rows].astype(np.int64)
+        rec_of, pids = csr_expand(auto, sts)
+        return docs[rec_of], end_pos[rec_of], pids
 
 
 def expand_matches(

@@ -33,6 +33,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..ops.scan_torch import INT32_MAX
+from ..utils.profiling import span
 from .mesh import DataMesh, process_count, replicated, row_sharding
 
 
@@ -107,11 +108,13 @@ def _globalize_counts(mesh: DataMesh, ns: Sequence[torch.Tensor],
     """``(counts [n_shards] int32, gstats [2] int32 = [sum, max])`` of the
     shards' 0-d counts, on the mesh's first device."""
     home = mesh.home
-    local = torch.stack([
-        n.reshape(()).to(home, torch.int32, non_blocking=True) for n in ns
-    ])
-    counts = _collect(mesh, local) if collect else local
-    gstats = torch.stack([counts.sum(), counts.max()]).to(torch.int32)
+    with span("gather", card=home, shards=len(ns)):
+        local = torch.stack([
+            n.reshape(()).to(home, torch.int32, non_blocking=True)
+            for n in ns
+        ])
+        counts = _collect(mesh, local) if collect else local
+        gstats = torch.stack([counts.sum(), counts.max()]).to(torch.int32)
     return counts, gstats
 
 
@@ -120,8 +123,9 @@ def _maybe_collect(mesh: DataMesh, bufs: Sequence[torch.Tensor],
     """The shards' ``[cap]`` buffers as one ``[n_shards, cap]`` tensor on
     the mesh's first device (every process's shards with ``collect``)."""
     home = mesh.home
-    local = torch.stack([b.to(home, non_blocking=True) for b in bufs])
-    return _collect(mesh, local) if collect else local
+    with span("gather", card=home, shards=len(bufs)):
+        local = torch.stack([b.to(home, non_blocking=True) for b in bufs])
+        return _collect(mesh, local) if collect else local
 
 
 def _scan_shards(mesh, arrays, chunks, init_state, lengths, emit_from,

@@ -32,6 +32,10 @@ class ScanStats:
     #: r4 weak #3: the fallback is correct but must not be silent
     records_fallbacks: int = 0
     records_fallback_reason: str = ""
+    #: points where a scan call's host blocked on the card (a sync, or a
+    #: fetch of counts or records), each also a ``wait`` span of
+    #: ``utils.profiling``: a CUDA graph of a chain cannot cross one
+    host_waits: int = 0
     last_engine: str = ""
     last_backend: str = ""
 
@@ -66,5 +70,6 @@ class ScanStats:
             f"{self.scans} scans, {self.bytes_scanned / 2**20:.1f} MiB, "
             f"{self.matches_emitted} matches, last={self.last_engine}/"
             f"{self.last_backend}, {self.capacity_retries} capacity "
-            f"retries, {self.records_fallbacks} records fallbacks"
+            f"retries, {self.records_fallbacks} records fallbacks, "
+            f"{self.host_waits} host waits"
         )

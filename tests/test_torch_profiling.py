@@ -1,6 +1,6 @@
 """The port's profiling hooks: ``automaton_dot`` string-equal to the JAX
 package's, ``trace`` writing a profiler trace on the CPU, ``sync``'s
-checksum and ``Timer``'s laps."""
+checksum and span times."""
 
 import json
 import random
@@ -49,6 +49,13 @@ def test_sync_and_timer():
     b = np.ones((3, 4), np.uint8)
     assert profiling.sync(a, b) == 45.0 + 12.0
     assert profiling.sync() == 0.0
-    t = profiling.Timer()
-    assert t.lap("a") >= 0.0 and t.lap("a") >= 0.0 and t.lap("b") >= 0.0
-    assert sorted(t.laps) == ["a", "b"]
+    # the program's phases are timed by its spans (the recorder replaced
+    # the lap timer): host-clock times, in the order they opened
+    with profiling.recording() as rec:
+        with profiling.span("a"):
+            profiling.sync(a)
+        with profiling.span("b"):
+            pass
+    assert [r.name for r in rec.records] == ["a", "b"]
+    assert all(r.t0 <= r.t1 for r in rec.records)
+    assert rec.records[0].t1 <= rec.records[1].t0

@@ -108,6 +108,26 @@ def test_records_batch_dispatch_has_no_event_on_cpu():
     _assert_batches([got], [mt.match_arrays_many([h, h])])
 
 
+def test_records_batch_finish_decides_overflow_once():
+    """Both handles of a batch overflow the coarse slot capacity; handle
+    0's re-run grows the learned capacity past handle 1's count, and
+    handle 1 must still re-run rather than read records that were never
+    fetched.  Each handle's records equal ``match_arrays``'."""
+    _, mt = _pair(engine="cascade")
+    hs = [mt.device_corpus(_mk_docs(s, planted=40)) for s in (1, 2)]
+    want = [mt.match_arrays(h) for h in hs]
+    cm = mt.cascade_model
+    nc = mt._records_batch_dispatch(hs, cm)[-2].reshape(2, 3)[:, 2]
+    assert int(nc.min()) > 1  # both overflow a capacity of 1
+    cm._cap_coarse = 1
+    retries = mt.stats.capacity_retries
+    got = mt.match_arrays_many(hs)
+    assert mt.stats.capacity_retries == retries + 1
+    assert cm._cap_coarse >= int(nc[1])
+    for g, w in zip(got, want):
+        _assert_arrays(g, w)
+
+
 def test_fresh_pipeline_matches_grouped_and_jax():
     """A fresh document list over ``2 * fresh_slice_bytes`` goes through
     the pipeline (doc indices made global across slices), equal to the
