@@ -167,9 +167,16 @@ code views 1-3 elements past a 16-byte boundary, tables of zeros and of
 ones), ``bloom_hit`` (blooms of 2^15-2^20 bits) and the grouped take
 filter's two kernels (strides 4-32, q 1-16, 1-8 salts, the second code
 family, shorts, ``min_long_len`` 0, groups of 32-1024 rows, prefix off and
-on) against their plain versions.  The kernel line lists six kernels: the
-four that replace the JAX package's Pallas kernels and the grouped take
-filter's two, which replace XLA code of its ``filter_jax.py``.
+on) and the records verify (``VERIFY_CASES``: 4-48 used bytes, int16,
+int32 and 2-step tables, strides 3-12, padding, capacities under the
+record count) against their plain versions.  Phases 3, 4, 8 (take-flat)
+and 9a (signature-byte) also hold every records-verify launch of one
+call against its plain version and time the kernel there beside it and
+its bytes floor, at the call's capacity and at half the record count;
+every path launches it once a chain, counted with the other kernels.  The
+kernel line lists seven kernels: the four that replace the JAX package's
+Pallas kernels and the grouped take filter's two and the records verify,
+which replace XLA code of its ``filter_jax.py``.
 """
 
 import contextlib
@@ -745,6 +752,166 @@ def planted_docs(needles, base, seed, reps=None):
     return dens, planted
 
 
+#: the records verify kernel's random cases: used bytes, rows, row
+#: length, stride, hit slots, capacity
+VERIFY_CASES = [
+    (4, 16, 256, 8, 256, 4096), (4, 16, 256, 8, 256, 48),
+    (48, 64, 4096, 8, 2048, 4096), (6, 33, 1000, 5, 777, 100),
+    (4, 8, 512, 12, 300, 8), (40, 5, 100, 3, 150, 64),
+]
+
+
+def phase_verify_random(torch, vr):
+    """The records verify kernel against its plain version on random
+    automata and corpora (``VERIFY_CASES``): 4-6 used bytes and 40-48
+    (where the plain version's classes come from the ``byte_class``
+    gather), the int16 and int32 dense tables and the 2-step table, strides 3-12,
+    ragged row lengths and ``emit_from``, a run of one byte (windows with
+    more finals than record slots), hit arrays with padding, ``n_hits``
+    past the array, every slot padding, and capacities under the record
+    count.  Returns ``(calls, max_abs_err)``."""
+    from php_aho_corasick_tpu_torch.core import TrieBuilder, compile_trie
+    from php_aho_corasick_tpu_torch.ops.filter_torch import (
+        REC2_BITS, _verify_records_torch,
+    )
+
+    calls, err = 0, 0
+    for seed, (n_alpha, B, L, stride, H, cap) in enumerate(VERIFY_CASES):
+        rng = np.random.default_rng(seed)
+        alphabet = np.arange(97, 97 + n_alpha, dtype=np.uint8)
+        top = min(16, 32 - stride)
+        patterns = list(dict.fromkeys(
+            [rng.choice(alphabet, rng.integers(3, top + 1)).tobytes()
+             for _ in range(40)] + [b"aaaa", b"aaaaa"]))
+        tb = TrieBuilder(1024)
+        for pat in patterns:
+            tb.add(pat)
+        auto = compile_trie(tb, [len(pat) for pat in patterns])
+        chunks = rng.choice(alphabet, (B, L))
+        for _ in range(4 * B):
+            pat = patterns[rng.integers(len(patterns))]
+            b, o = rng.integers(B), rng.integers(L - len(pat))
+            chunks[b, o : o + len(pat)] = np.frombuffer(pat, np.uint8)
+        chunks[0, 10:40] = ord("a")
+        lengths = np.full(B, L, np.int32)
+        lengths[1::3] = rng.integers(L // 2, L, len(lengths[1::3]))
+        emit_from = np.zeros(B, np.int32)
+        emit_from[2::4] = 11
+        M = -(-L // stride)
+        m0 = min(M, H // 2)
+        cells = np.concatenate([np.arange(m0), rng.choice(
+            np.arange(M, B * M), H - m0 - 20, replace=False)])
+        drawn = np.full(H, 2**31 - 1, np.int32)
+        drawn[: cells.shape[0]] = rng.permutation(cells)
+        t = np.ascontiguousarray(auto.table, dtype=np.int64)
+        S, C = t.shape
+        table2 = (t[t.reshape(-1), :].reshape(S, C, C)
+                  | (t[:, :, None] << REC2_BITS)).astype(np.int32)
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)
+
+        common = (put(auto.byte_class.astype(np.int32)),
+                  put(auto.used_bytes), put(chunks), put(lengths),
+                  put(emit_from))
+        fs = torch.tensor(auto.final_start, dtype=torch.int32, device=DEVICE)
+        kw = dict(n_classes=C, stride=stride,
+                  win_len=stride - 1 + auto.max_len)
+        for step, table in ((1, t.astype(np.int16)), (1, t.astype(np.int32)),
+                            (2, table2)):
+            for grid, n_hits in ((drawn, H), (drawn, H + 100),
+                                 (np.full(H, 2**31 - 1, np.int32), H)):
+                for capacity in (cap, 4096):
+                    args = (put(table.reshape(-1)), *common, put(grid), fs)
+                    k = dict(kw, capacity=capacity, n_hits=n_hits, step=step)
+                    got = vr(*args, **k)
+                    want = _verify_records_torch(*args, **k)
+                    err = max(err, compare(got, want, (
+                        f"verify_records case {seed}, step {step}, "
+                        f"{table.dtype}, n_hits {n_hits}, capacity "
+                        f"{capacity}")))
+                    calls += 1
+    return calls, err
+
+
+def verify_bound(args, kw, out):
+    """``bound_of`` the records verify: a bytes floor only, each byte the
+    launch must touch read or written once: the hit slots (4 bytes each);
+    the corpus bytes the live slots' windows cover (windows overlap, so
+    their union, cut at each row's end); the row length and ``emit_from``
+    of each distinct row a live slot lies in (8 bytes); the table's
+    entries, but no more of them than the walks gather (one a position,
+    or a pair of positions on the 2-step table); the records and their
+    count written once (8 bytes a capacity entry, 4).  The kernel's
+    working bound is not this but each slot's ``win_len`` (or half as
+    many) dependent L2 gathers of the table."""
+    table, chunks, lengths, grid_idx = args[0], args[3], args[4], args[6]
+    L = chunks.shape[1]
+    H = min(kw["n_hits"], grid_idx.shape[0])
+    g = grid_idx[:H].cpu().numpy().astype(np.int64)
+    g = g[g < 2**31 - 1]
+    stride, W = kw["stride"], kw["win_len"]
+    M = -(-L // stride)
+    b = g // M
+    w0 = (g % M) * stride - (stride - 1)
+    row_end = lengths.cpu().numpy().astype(np.int64)[b]
+    lo = b * L + np.maximum(w0, 0)
+    hi = b * L + np.minimum(w0 + W, row_end)
+    order = np.argsort(lo, kind="stable")
+    lo, hi = lo[order], hi[order]
+    reach = np.maximum.accumulate(hi)  # the union's end so far
+    before = np.concatenate([[np.iinfo(np.int64).min], reach[:-1]])
+    window_bytes = int(np.maximum(hi - np.maximum(lo, before), 0).sum())
+    gathers = g.shape[0] * -(-W // kw.get("step", 1))
+    n_bytes = (4 * H + window_bytes + 8 * np.unique(b).shape[0]
+               + min(table.numel(), gathers) * table.element_size()
+               + 8 * out[0].numel() + 4)
+    return bound_of(n_bytes, 0)
+
+
+def verify_check(torch, card, what, run):
+    """The records verify at one path's shapes (``run()``: one call of the
+    path): every launch of the call held against the plain version on the
+    same inputs; then, on the first launch's inputs, the kernel's ms (CUDA
+    events) beside the plain version's and its bound, at the call's
+    capacity and, when it made two records or more, at half their count
+    (``n_rec > capacity``: the cut and the count), each held again.
+    Returns the largest difference and the times by capacity."""
+    from php_aho_corasick_tpu_torch.ops import filter_cuda
+    from php_aho_corasick_tpu_torch.soak import plain_version
+
+    _, calls = spy_calls(("verify_records",), run)
+    calls = calls["verify_records"]
+    assert calls, f"{what}: verify_records was not launched"
+    err = 0
+    for call in calls:
+        err = max(err, held_to_plain(torch, "verify_records", call,
+                                     f"at the {what} shape"))
+    args, kw, out = calls[0]
+    n_rec = int(out[2])
+    caps = [kw["capacity"]] + ([n_rec // 2] if n_rec >= 2 else [])
+    times = {}
+    for cap in caps:
+        k = dict(kw, capacity=cap)
+        got = filter_cuda.verify_records(*args, **k)
+        err = max(err, compare(got, plain_version("verify_records", args, k),
+                               f"verify_records at the {what} shape, "
+                               f"capacity {cap}"))
+        k_ms = cuda_ms(lambda: filter_cuda.verify_records(*args, **k), 50)
+        p_ms = cuda_ms(lambda: plain_version("verify_records", args, k), 3)
+        b_ms, b_by, b_bytes, _ = verify_bound(args, k, got)
+        H = min(k["n_hits"], args[6].shape[0])
+        log(f"verify_records at the {what} shape ({len(calls)} launch(es) "
+            f"a call, {H} hit slots, step {k.get('step', 1)}, "
+            f"{args[0].dtype} table of {args[0].numel()}, win_len "
+            f"{k['win_len']}, capacity {cap}, n_rec {n_rec}): bit-equal to "
+            f"its plain version; {k_ms:.4f} ms (plain {p_ms:.4f} ms, bytes "
+            f"floor {b_ms:.6f} ms: {b_bytes} bytes); on {card}")
+        times[cap] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by}
+    return err, times
+
+
 def planted_check(m, needles, base, seed, what):
     """Plant ``needles`` at ``DENSITY`` per byte into the base documents
     replicated ``DENSITY_REPS`` times; every intact planted needle must be
@@ -1053,7 +1220,7 @@ def counts_zeroed(kernels):
 #: the four of the JAX package's Pallas kernels
 GROUPED = ("grouped_take_extract", "grouped_take_refine")
 #: the order of ``kernels`` and of every list of launch counts
-KERNEL_ORDER = "fused, rows, bloom_hit, tile, extract, refine"
+KERNEL_ORDER = "fused, rows, bloom_hit, tile, extract, refine, verify"
 
 
 def spy_calls(names, fn):
@@ -1238,12 +1405,15 @@ def grouped_check(torch, card, what, run):
 
 
 def phase_take_path(torch, base, card, head, kernels):
-    """The sampled take filters: take-flat at 16,384 needles (no hand
-    kernel), take-grouped on the headline's handle (the grouped filter's
-    two kernels), force-take.  ``head`` is the headline's ``(needles,
-    handle, warm result)``.  Returns the hand kernels' launches of the
-    grouped run, the grouped kernels' largest difference from their plain
-    versions and their times at its shapes (:func:`grouped_check`)."""
+    """The sampled take filters: take-flat at 16,384 needles (no filter
+    kernel; the records verify on its int32 dense table), take-grouped on
+    the headline's handle (the grouped filter's two kernels and the
+    records verify on the int16 dense table), force-take.  ``head`` is the
+    headline's ``(needles, handle, warm result)``.  Returns the hand
+    kernels' launches of both timed batches, the grouped kernels' largest
+    difference from their plain versions and their times at its shapes
+    (:func:`grouped_check`), and the records verify's
+    (:func:`verify_check`) by shape."""
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
 
     docs = [row.tobytes() for row in base] * HEADLINE_REPS
@@ -1286,9 +1456,11 @@ def phase_take_path(torch, base, card, head, kernels):
     ms, res, wall = timed_passes(
         torch, lambda: m.match_arrays_many([h] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
-    launched = [k.launches for k in kernels]
+    flat_launched = launched_of(kernels)
     assert m.stats.records_fallbacks == fallbacks, "batch fell back"
-    assert not any(launched), f"take-flat launched hand kernels: {launched}"
+    assert not any(flat_launched[:6]), (
+        f"take-flat launched filter kernels: {flat_launched}")
+    assert flat_launched[6] >= BATCH, f"take-flat: {flat_launched}"
     assert not cm._force_take and cm.take_branch(L) == "flat"
     for r in res:
         for key in r:
@@ -1301,8 +1473,9 @@ def phase_take_path(torch, base, card, head, kernels):
     log(f"take-flat: match_arrays_many([handle] * {BATCH}) over "
         f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
         f"({wall:.3f} ms wall), {total / ms / 1e6:.2f} GB/s, "
-        f"{res[0]['doc'].shape[0]} matches/pass, no hand kernel launched, "
-        f"no records fallback, no host verify; device time of the flat "
+        f"{res[0]['doc'].shape[0]} matches/pass, hand kernel launches "
+        f"({KERNEL_ORDER}) {flat_launched}, no records fallback, no host "
+        f"verify; device time of the flat "
         f"filter {f_ms:.3f} ms, of filter + record verify {c_ms:.3f} ms "
         f"(capacity {max(cm._cap_hits, 256)}); on {card}")
     # one pass's host half: the fetch of the records and their expansion
@@ -1319,6 +1492,8 @@ def phase_take_path(torch, base, card, head, kernels):
         f"ms, host expansion {(t2 - t1) * 1e3:.3f} ms (host clock); on "
         f"{card}")
     trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card)
+    vr_shapes = {"take-flat": verify_check(torch, card, "take-flat",
+                                           lambda: m.match_arrays(h))}
     pending = assert_no_sync(
         torch, lambda: m._records_batch_dispatch([h] * 2, cm))
     m._records_batch_finish(*pending, True)
@@ -1348,7 +1523,7 @@ def phase_take_path(torch, base, card, head, kernels):
         torch, lambda: mg.match_arrays_many([hh] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
     launched = launched_of(kernels)
-    assert min(launched[4:]) >= BATCH, f"grouped kernels: {launched}"
+    assert min(launched[4:]) >= BATCH, f"grouped kernels, verify: {launched}"
     assert not any(launched[:4]), f"take-grouped launched others: {launched}"
     assert mg.stats.records_fallbacks == fallbacks, "batch fell back"
     assert cg.take_branch(L) == "grouped"
@@ -1376,6 +1551,8 @@ def phase_take_path(torch, base, card, head, kernels):
     err, times = grouped_check(
         torch, card, "take-grouped",
         lambda: cg.scan_hits_sampled(hh.chunks_d, hh.lengths_d, cap))
+    vr_shapes["take-grouped"] = verify_check(
+        torch, card, "take-grouped", lambda: mg.match_arrays(hh))
     planted_check(mg, needles_h, base, int(DENSITY * 1e9),
                   "take-grouped planted corpus")
     del mg, cg
@@ -1403,7 +1580,8 @@ def phase_take_path(torch, base, card, head, kernels):
         f"take filter in the first call ({first_s:.3f} s, host clock); a "
         f"second call on the same matcher equal, {ms:.3f} ms by CUDA events "
         f"({wall:.3f} ms wall); on {card}")
-    return launched, err, times
+    launched = [a + b for a, b in zip(flat_launched, launched)]
+    return launched, err, times, vr_shapes
 
 
 def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
@@ -1930,7 +2108,7 @@ def phase_signature_path(torch, card, kernels):
         f"{h8.total_bytes / d_ms / 1e6:.3f} GB/s, rows "
         f"{tuple(h8.chunks_d.shape)}, hand kernel launches {d_launched}; on "
         f"{card}")
-    assert min(launched[4:]) >= BATCH, f"grouped kernels: {launched}"
+    assert min(launched[4:6]) >= BATCH, f"grouped kernels: {launched}"
     return launched, err, times, (m, docs, res[0], rdfa, n_slice), build_s
 
 
@@ -2975,8 +3153,10 @@ def phase_hex_grouped(torch, card, kernels):
     filter; one ``match_arrays`` pass over its 64 MiB counted, its
     records holding every plant, then the grouped filter's kernels held
     against their plain versions and timed at its shapes
-    (:func:`grouped_check`).  Returns the pass's hand kernel launches, the
-    largest difference and the kernels' times."""
+    (:func:`grouped_check`), and the records verify's launches likewise
+    (:func:`verify_check`).  Returns the pass's hand kernel launches, the
+    grouped kernels' largest difference and times, and the records
+    verify's."""
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
     from php_aho_corasick_tpu_torch.bench import signatures
 
@@ -3013,9 +3193,11 @@ def phase_hex_grouped(torch, card, kernels):
         f"device time of the grouped filter {cuda_ms(run, 5):.3f} ms; on "
         f"{card}")
     err, times = grouped_check(torch, card, "signature-hex", run)
+    vr_hex = verify_check(torch, card, "signature-hex",
+                          lambda: m.match_arrays(h))
     del m, cm, h, res
     torch.cuda.empty_cache()
-    return launched, err, times
+    return launched, err, times, vr_hex
 
 
 #: phase 14: the measurement tools, in the order they run, at these sizes
@@ -3187,7 +3369,7 @@ def phase_bench(card, auto, needles, base):
                 f"{json.dumps(rec)}")
     expected = pending.result()
     assert launched[0] > 0, "no tool launched the fused kernel"
-    assert min(launched[4:]) > 0, "no tool launched the grouped kernels"
+    assert min(launched[4:6]) > 0, "no tool launched the grouped kernels"
     log(f"phase 14: 5 tools in {time.perf_counter() - t_all:.1f} s, every "
         f"held launch bit-equal to its plain version; density rows' records "
         f"equal the host walk's {expected['density']} (records, plants "
@@ -3239,6 +3421,7 @@ def main(argv=None):
         fused_sampled_extract as fse,
         grouped_take_extract as gte,
         grouped_take_refine as gtr,
+        verify_records as vr,
     )
     from php_aho_corasick_tpu_torch.ops.scan_cuda import (
         _scan_states_tile_torch,
@@ -3278,6 +3461,11 @@ def main(argv=None):
     log(f"kernel check 5 (grouped_take_extract and grouped_take_refine, "
         f"{n_gr} random cases: strides 4-32, q 1-16, 1-8 salts, the second "
         f"code family, shorts, min_long_len 0, prefix off and on): "
+        f"bit-equal")
+    n_vr, vr_err = phase_verify_random(torch, vr)
+    log(f"kernel check 6 (verify_records, {n_vr} random calls: 4-48 used "
+        f"bytes, int16 / int32 / 2-step tables, strides 3-12, n_hits past "
+        f"the hits, all padding, capacities under the record count): "
         f"bit-equal")
 
     # 3. main path setup at the headline size
@@ -3336,6 +3524,7 @@ def main(argv=None):
     m.match_arrays_many([h] * BATCH)  # warm the batch structure
     torch.cuda.synchronize()
     fse.launches = 0
+    vr.launches = 0
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     w0 = time.perf_counter()
@@ -3347,6 +3536,8 @@ def main(argv=None):
     launches = fse.launches
     ms = e0.elapsed_time(e1) / BATCH
     assert launches >= BATCH, f"fused kernel launched {launches} times"
+    # one records verify a chain, never the torch loop
+    assert vr.launches == launches, (vr.launches, launches)
     assert all(r["doc"].shape == res[0]["doc"].shape for r in res)
     for key in res[0]:
         assert np.array_equal(res[0][key], warm[key]), key
@@ -3354,7 +3545,10 @@ def main(argv=None):
         f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
         f"({wall * 1e3:.3f} ms wall), {total / ms / 1e6:.2f} GB/s, "
         f"{res[0]['doc'].shape[0]} matches/pass, kernel launches "
-        f"{launches}, on {card}")
+        f"{launches} (verify_records {vr.launches}), on {card}")
+    vr_launches = vr.launches
+    err_h, vr_times = verify_check(torch, card, "headline",
+                                   lambda: m.match_arrays(h))
 
     trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card)
 
@@ -3368,6 +3562,8 @@ def main(argv=None):
     # 4. planted matches against a host DFA walk
     hd, rd = planted_check(m, needles, base, int(DENSITY * 1e9),
                            "planted corpus")
+    err_p, vr_planted = verify_check(torch, card, "planted",
+                                     lambda: m.match_arrays(hd))
 
     # 5. the tile path
     tile_cell, tile_kernel = phase_tile_path(
@@ -3385,8 +3581,8 @@ def main(argv=None):
     hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], hit_err)
 
     # 8. the take filters: the grouped one on its two kernels
-    kernels = (fse, bwv, bh, sst, gte, gtr)
-    take_launched, take_err, take_times = phase_take_path(
+    kernels = (fse, bwv, bh, sst, gte, gtr, vr)
+    take_launched, take_err, take_times, vr_shapes = phase_take_path(
         torch, base, card, (needles, h, warm), kernels)
     grouped = {}
     for name in GROUPED:
@@ -3404,16 +3600,31 @@ def main(argv=None):
             **take_times[name],  # at the take-grouped cell's shapes
             "library_ms": None,
         }
-    # the five kernel lines after the fused kernel, in the order of
+    vr_err = max([vr_err, err_h, err_p]
+                 + [e for e, _ in vr_shapes.values()])
+    verify_kernel = {
+        "name": "verify_records",
+        "route": "cuda",
+        "source": "php_aho_corasick_tpu_torch/csrc/verify_records.cu",
+        # XLA code of the reference: the records verify's walk and
+        # compaction
+        "replaces": "php_aho_corasick_tpu/ops/filter_jax.py:1023",
+        "launches": vr_launches,
+        "max_abs_err": vr_err,
+        **next(iter(vr_times.values())),  # at the headline's shape
+        "library_ms": None,
+    }
+    # the six kernel lines after the fused kernel, in the order of
     # ``kernels`` (the fused kernel's launches are counted apart)
-    others = (rows_kernel, hit_kernel, tile_kernel, *grouped.values())
+    others = (rows_kernel, hit_kernel, tile_kernel, *grouped.values(),
+              verify_kernel)
 
     def count(launched, errs=None):
         nonlocal launches
         launches += launched[0]
         for k, n in zip(others, launched[1:]):
             k["launches"] += n
-        for k, e in zip(others, (errs or [0] * 6)[1:]):
+        for k, e in zip(others, (errs or [0] * 7)[1:]):
             k["max_abs_err"] = max(k["max_abs_err"], e)
 
     count(take_launched)
@@ -3426,7 +3637,7 @@ def main(argv=None):
     kgram_launched = phase_kgram_path(torch, card, kernels, tile_cell)
     for launched in (sig_launched, comp_launched, kgram_launched):
         count(launched)
-    count([0] * 6, [0, 0, 0, 0, sig_err, sig_err])
+    count([0] * 7, [0, 0, 0, 0, sig_err, sig_err, 0])
 
     # 10. serving and streaming: the fresh-corpus pipeline, the cross-batch
     # double buffer, the stream's two carries, iter_matches, replace, warmup
@@ -3439,14 +3650,14 @@ def main(argv=None):
     shard_launched, shard_err = phase_shard_path(
         torch, card, kernels, (needles, m, h, warm), (hd, rd), tile_cell, sig,
         base)
-    count(shard_launched, [shard_err] * 6)
+    count(shard_launched, [shard_err] * 7)
     err2 = max(err2, shard_err)
 
     # 12. the native builder, matcher files, profiling, the CLI, examples
     rest_launched, rest_err = phase_remaining_surface(
         torch, card, kernels, (needles, m, h, warm, base), (hd, rd), sig,
         sig_build_s)
-    count(rest_launched, [rest_err] * 6)
+    count(rest_launched, [rest_err] * 7)
     err2 = max(err2, rest_err)
 
     # 13. the randomized soak's fixed slice, in a subprocess
@@ -3457,8 +3668,10 @@ def main(argv=None):
     # 14. the hex signature set's grouped filter in process, then the
     # measurement tools in subprocesses
     del sig
-    hex_launched, hex_err, hex_times = phase_hex_grouped(torch, card, kernels)
-    count(hex_launched, [0, 0, 0, 0, hex_err, hex_err])
+    hex_launched, hex_err, hex_times, vr_shapes["signature-hex"] = (
+        phase_hex_grouped(torch, card, kernels))
+    count(hex_launched, [0, 0, 0, 0, hex_err, hex_err,
+                         vr_shapes["signature-hex"][0]])
     bench_launched, bench_err = phase_bench(card, m.automaton, needles,
                                             [row.tobytes() for row in base])
     count(bench_launched, bench_err)
@@ -3485,7 +3698,15 @@ def main(argv=None):
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-    }, tile_kernel, rows_kernel, hit_kernel, *grouped.values()]
+    }, tile_kernel, rows_kernel, hit_kernel, *grouped.values(),
+        verify_kernel]
+    vr_shapes = {"headline": (err_h, vr_times),
+                 "planted": (err_p, vr_planted), **vr_shapes}
+    log("verify_records by shape and capacity, ms (plain, bytes floor): "
+        + "; ".join(f"{what} {cap}: {t['ms']:.4f} ({t['plain_ms']:.4f}, "
+                    f"{t['bound_ms']:.6f})"
+                    for what, (_, times) in vr_shapes.items()
+                    for cap, t in times.items()) + f"; on {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

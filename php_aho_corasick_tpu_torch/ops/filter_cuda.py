@@ -28,6 +28,14 @@ code (``filter_jax.filter_hits_sampled_grouped``), not a Pallas kernel:
   the pass that computes the slot); plain version
   :func:`_grouped_refine_torch`.
 
+and one for the records verify (``filter_torch.verify_windows_records``
+and ``verify_windows_records2``), whose reference is XLA code too
+(``filter_jax.verify_windows_records``, ``verify_windows_records2``):
+
+- :func:`verify_records` (``csrc/verify_records.cu``), every hit slot's
+  window walk, its record slots and the records' compaction in one launch;
+  plain version ``filter_torch._verify_records_torch``.
+
 For every stride cell of the corpus grid the fused filter
 
 1. assembles the q-gram code from the ``spc`` corpus word phases,
@@ -56,8 +64,8 @@ import torch
 
 from .filter_torch import (
     FUSED_BLOCK_R, GRAM_BASE, GRAM_BASE2, INT32_MAX, KNUTH, SALT2, U32_MASK,
-    _planes_code, _salted_probe, _word_planes, bloom_hit_take, bloom_slots,
-    mul32, to_i32, u32,
+    _planes_code, _salted_probe, _verify_records_torch, _word_planes,
+    bloom_hit_take, bloom_slots, mul32, to_i32, u32,
 )
 
 
@@ -854,3 +862,124 @@ def grouped_take_refine(
 
 
 grouped_take_refine.launches = 0
+
+
+#: C signature of ``verify_records_launch`` (csrc/verify_records.cu)
+VERIFY_ARGTYPES = [
+    _P, _I, _I,  # table, its entry bytes, step
+    _P,  # byte_class
+    _P, _LL, _I,  # chunks, rows, row_len
+    _P, _P, _P, _P,  # lengths, emit_from, grid_idx, final_start
+    _I, _I, _I, _I, _I,  # n_classes, stride, win_len, H, capacity
+    _P, _P, _P, _P,  # scratch, rec_cell, rec_pack, n_rec
+    _P,  # stream
+]
+
+
+def _verify_lib():
+    from ._build import load_library
+
+    lib = load_library("verify_records")
+    if lib.verify_records_launch.argtypes is None:
+        lib.verify_records_launch.argtypes = VERIFY_ARGTYPES
+        lib.verify_records_launch.restype = ctypes.c_int
+        lib.verify_records_scratch_words.argtypes = [_LL]
+        lib.verify_records_scratch_words.restype = _LL
+    return lib
+
+
+def check_verify_inputs(table, byte_class, chunks, lengths, emit_from,
+                        grid_idx, final_start, *, n_classes, stride,
+                        win_len, capacity, step):
+    """Raise on what ``csrc/verify_records.cu`` does not take: every
+    tensor on ``table``'s device and contiguous, ``table`` 1-D int16 or
+    int32 (int32 for the 2-step table), ``byte_class`` int32 ``[256]``,
+    ``chunks`` uint8 ``[B, L]``, ``lengths``, ``emit_from`` int32 ``[B]``,
+    ``grid_idx`` 1-D int32, ``final_start`` one int32; ``win_len`` 1-31,
+    ``step`` 1 or 2."""
+    if not (step in (1, 2) and 1 <= win_len <= 31 and stride >= 1
+            and n_classes >= 1 and capacity >= 1):
+        raise ValueError("verify_records: unsupported configuration")
+    dev = table.device
+    dtypes = (torch.int16, torch.int32) if step == 1 else (torch.int32,)
+    if table.dtype not in dtypes:
+        raise TypeError(f"table: expected one of {dtypes} for step {step}, "
+                        f"got {table.dtype}")
+    _check("table", table, (table.numel(),), dev, table.dtype)
+    _check("byte_class", byte_class, (256,), dev)
+    if chunks.dim() != 2 or chunks.numel() == 0:
+        raise ValueError("chunks: expected a non-empty [B, L]")
+    B, L = chunks.shape
+    _check("chunks", chunks, (B, L), dev, torch.uint8)
+    _check("lengths", lengths, (B,), dev)
+    _check("emit_from", emit_from, (B,), dev)
+    _check("grid_idx", grid_idx, (grid_idx.numel(),), dev)
+    _check("final_start", final_start, final_start.shape, dev)
+    if final_start.numel() != 1:
+        raise ValueError("final_start: expected one value")
+
+
+def verify_records(
+    table: torch.Tensor,  # dense [S*C] int16/int32, or 2-step [S*C*C] int32
+    byte_class: torch.Tensor,  # [256] int32
+    used_bytes: torch.Tensor,  # uint8, read by the plain version only
+    chunks: torch.Tensor,  # [B, L] uint8
+    lengths: torch.Tensor,  # [B] int32
+    emit_from: torch.Tensor,  # [B] int32
+    grid_idx: torch.Tensor,  # [>=n_hits] int32 b*M+m hits, INT32_MAX-padded
+    final_start: torch.Tensor,  # scalar int32
+    *,
+    n_classes: int,
+    stride: int,
+    win_len: int,  # <= 31 (REC_OVERFLOW_J is reserved)
+    capacity: int,
+    n_hits: int,
+    step: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The records verify of ``filter_torch.verify_windows_records``
+    (``step`` 1, the dense table) or ``verify_windows_records2`` (``step``
+    2, the packed 2-step table): each of the first ``min(n_hits,
+    len(grid_idx))`` hit slots walks its window and keeps its records,
+    which are compacted in slot-major order.  Returns ``(rec_cell [cap],
+    rec_pack [cap], n_rec)``.
+
+    A CUDA ``table`` launches ``csrc/verify_records.cu`` (counted in
+    ``verify_records.launches``), after :func:`check_verify_inputs`; it
+    classifies through ``byte_class`` alone, which the automaton builds
+    from ``used_bytes``.  A CPU one runs
+    ``filter_torch._verify_records_torch``."""
+    if not table.is_cuda:
+        return _verify_records_torch(
+            table, byte_class, used_bytes, chunks, lengths, emit_from,
+            grid_idx, final_start, n_classes, stride, win_len, capacity,
+            n_hits, step)
+    check_verify_inputs(
+        table, byte_class, chunks, lengths, emit_from, grid_idx, final_start, n_classes=n_classes, stride=stride, win_len=win_len,
+        capacity=capacity, step=step)
+    H = min(n_hits, grid_idx.shape[0])
+    if H < 1:
+        raise ValueError("verify_records: no hit slots")
+    dev = table.device
+    lib = _verify_lib()
+    scratch = torch.empty(lib.verify_records_scratch_words(H),
+                          dtype=torch.int32, device=dev)
+    rec_cell = torch.empty(capacity, dtype=torch.int32, device=dev)
+    rec_pack = torch.empty(capacity, dtype=torch.int32, device=dev)
+    n_rec = torch.empty((), dtype=torch.int32, device=dev)
+    B, L = chunks.shape
+    rc = lib.verify_records_launch(
+        table.data_ptr(), table.element_size(), step, byte_class.data_ptr(),
+        chunks.data_ptr(), B, L, lengths.data_ptr(), emit_from.data_ptr(),
+        grid_idx.data_ptr(), final_start.data_ptr(), n_classes, stride,
+        win_len, H, capacity, scratch.data_ptr(), rec_cell.data_ptr(),
+        rec_pack.data_ptr(), n_rec.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"verify_records kernel launch failed: CUDA error {rc}")
+    verify_records.launches += 1
+    return rec_cell, rec_pack, n_rec
+
+
+verify_records.launches = 0

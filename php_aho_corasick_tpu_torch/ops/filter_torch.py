@@ -17,7 +17,8 @@ the rest per extracted slot, then a prefix-bloom refinement: the kernels
 where the stride gate holds, else the flat :func:`filter_hits_sampled`.  Either way the hits are compacted and
 verified by an exact DFA walk over their candidate windows, which emits
 compacted ``(cell, state*32 + j)`` match records for the host to
-expand.  **Anchored**
+expand (on a card the dense and 2-step walks and their compaction are one
+launch of ``ops/filter_cuda.verify_records``).  **Anchored**
 (:func:`filter_candidates`): every position is tested as a match start
 against 1-3 staged bit blooms of class q-gram codes; the survivors are
 verified on the host.
@@ -687,6 +688,62 @@ def _record_step(s_j, final_j, pos_j, valid_j, j, row_emit, cnt, slots):
     return cnt + fin.to(torch.int32)
 
 
+def _verify_records_torch(
+    table_flat, byte_class, used_bytes, chunks, lengths, emit_from, grid_idx,
+    final_start, n_classes, stride, win_len, capacity, n_hits, step=1,
+):
+    """Plain PyTorch version of :func:`~.filter_cuda.verify_records`: the
+    window walk of :func:`verify_windows_records` (``step`` 1) or of
+    :func:`verify_windows_records2` (``step`` 2), a few small ops a
+    window position, then the records' compaction.  Runs on any device."""
+    grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
+        chunks, lengths, emit_from, grid_idx, stride, n_hits
+    )
+    W = win_len
+    cls = _window_classes(byte_class, used_bytes, chunks, base, W)
+    dev = chunks.device
+    state = torch.zeros(H, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(H, dtype=torch.int32, device=dev)
+    slots = [torch.zeros(H, dtype=torch.int32, device=dev)
+             for _ in range(VERIFY_KR)]
+    if step == 1:
+        for j in range(W):
+            pos_j = w0 + j
+            valid_j = (pos_j >= 0) & (pos_j < row_len) & active
+            cls_j = torch.where(valid_j, cls[:, j], 0)
+            state = table_flat[state.long() * n_classes + cls_j].to(
+                torch.int32)
+            cnt = _record_step(state, state >= final_start, pos_j, valid_j, j,
+                               row_emit, cnt, slots)
+        return _emit_records(grid_idx, H, cnt, slots, capacity)
+    smask = (1 << REC2_BITS) - 1
+    C2 = n_classes * n_classes
+    for t in range(-(-W // 2)):
+        j1, j2 = 2 * t, 2 * t + 1
+        pos1 = w0 + j1
+        valid1 = (pos1 >= 0) & (pos1 < row_len) & active
+        c1 = torch.where(valid1, cls[:, j1], 0)
+        if j2 < W:
+            pos2 = w0 + j2
+            valid2 = (pos2 >= 0) & (pos2 < row_len) & active
+            c2 = torch.where(valid2, cls[:, j2], 0)
+        else:  # dead half-step: class 0, never emits
+            pos2, valid2, c2 = (pos1, torch.zeros_like(valid1),
+                                torch.zeros_like(c1))
+        entry = table_flat[
+            state.long() * C2 + c1.long() * n_classes + c2
+        ].to(torch.int32)
+        s1 = entry >> REC2_BITS
+        s2 = entry & smask
+        cnt = _record_step(s1, s1 >= final_start, pos1, valid1, j1,
+                           row_emit, cnt, slots)
+        if j2 < W:
+            cnt = _record_step(s2, s2 >= final_start, pos2, valid2, j2,
+                               row_emit, cnt, slots)
+        state = s2
+    return _emit_records(grid_idx, H, cnt, slots, capacity)
+
+
 def verify_windows_records(
     table_flat: torch.Tensor,  # [S*C] int16/int32 dense transition table
     byte_class: torch.Tensor,
@@ -708,27 +765,17 @@ def verify_windows_records(
     window (up to ``VERIFY_KR``; more emit one ``REC_OVERFLOW_J``
     sentinel for an exact host re-walk).  Returns ``(rec_cell [cap],
     rec_pack [cap], n_rec)`` in slot order; retry when ``n_rec >
-    capacity``."""
+    capacity``.  A CUDA table walks and compacts in one launch of
+    ``csrc/verify_records.cu`` (:func:`~.filter_cuda.verify_records`); a
+    CPU one runs :func:`_verify_records_torch`."""
+    from .filter_cuda import verify_records
+
     with span("verify", capacity=capacity, hits=n_hits):
-        grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
-            chunks, lengths, emit_from, grid_idx, stride, n_hits
+        return verify_records(
+            table_flat, byte_class, used_bytes, chunks, lengths, emit_from,
+            grid_idx, final_start, n_classes=n_classes, stride=stride,
+            win_len=win_len, capacity=capacity, n_hits=n_hits, step=1,
         )
-        W = win_len
-        cls = _window_classes(byte_class, used_bytes, chunks, base, W)
-        dev = chunks.device
-        state = torch.zeros(H, dtype=torch.int32, device=dev)
-        cnt = torch.zeros(H, dtype=torch.int32, device=dev)
-        slots = [torch.zeros(H, dtype=torch.int32, device=dev)
-                 for _ in range(VERIFY_KR)]
-        for j in range(W):
-            pos_j = w0 + j
-            valid_j = (pos_j >= 0) & (pos_j < row_len) & active
-            cls_j = torch.where(valid_j, cls[:, j], 0)
-            state = table_flat[state.long() * n_classes + cls_j].to(
-                torch.int32)
-            cnt = _record_step(state, state >= final_start, pos_j, valid_j, j,
-                               row_emit, cnt, slots)
-        return _emit_records(grid_idx, H, cnt, slots, capacity)
 
 
 def verify_windows_records_compressed(
@@ -799,44 +846,16 @@ def verify_windows_records2(
     positions per dependent gather, and the intermediate state ``s1``
     rides in the entry's high bits so finals at both positions are
     detected.  Requires ``S < 2**15``; positions outside ``[0, length)``
-    contribute class 0 exactly like the 1-step walk."""
+    contribute class 0 exactly like the 1-step walk.  Launches like
+    :func:`verify_windows_records`."""
+    from .filter_cuda import verify_records
+
     with span("verify", capacity=capacity, hits=n_hits):
-        grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
-            chunks, lengths, emit_from, grid_idx, stride, n_hits
+        return verify_records(
+            table2_flat, byte_class, used_bytes, chunks, lengths, emit_from,
+            grid_idx, final_start, n_classes=n_classes, stride=stride,
+            win_len=win_len, capacity=capacity, n_hits=n_hits, step=2,
         )
-        W = win_len
-        cls = _window_classes(byte_class, used_bytes, chunks, base, W)
-        dev = chunks.device
-        smask = (1 << REC2_BITS) - 1
-        C2 = n_classes * n_classes
-        state = torch.zeros(H, dtype=torch.int32, device=dev)
-        cnt = torch.zeros(H, dtype=torch.int32, device=dev)
-        slots = [torch.zeros(H, dtype=torch.int32, device=dev)
-                 for _ in range(VERIFY_KR)]
-        for t in range(-(-W // 2)):
-            j1, j2 = 2 * t, 2 * t + 1
-            pos1 = w0 + j1
-            valid1 = (pos1 >= 0) & (pos1 < row_len) & active
-            c1 = torch.where(valid1, cls[:, j1], 0)
-            if j2 < W:
-                pos2 = w0 + j2
-                valid2 = (pos2 >= 0) & (pos2 < row_len) & active
-                c2 = torch.where(valid2, cls[:, j2], 0)
-            else:  # dead half-step: class 0, never emits
-                pos2, valid2, c2 = (pos1, torch.zeros_like(valid1),
-                                    torch.zeros_like(c1))
-            entry = table2_flat[
-                state.long() * C2 + c1.long() * n_classes + c2
-            ].to(torch.int32)
-            s1 = entry >> REC2_BITS
-            s2 = entry & smask
-            cnt = _record_step(s1, s1 >= final_start, pos1, valid1, j1,
-                               row_emit, cnt, slots)
-            if j2 < W:
-                cnt = _record_step(s2, s2 >= final_start, pos2, valid2, j2,
-                                   row_emit, cnt, slots)
-            state = s2
-        return _emit_records(grid_idx, H, cnt, slots, capacity)
 
 
 def records_chain_vmem(

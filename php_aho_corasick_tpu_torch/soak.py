@@ -6,7 +6,7 @@ random :class:`ScanConfig` (engine x ``chunk_len`` x capacity x
 ``cascade_mode`` x ``bloom_impl`` x ``table_format`` x ``find_all`` x
 handles x ``auto_shard``), scans the documents with ``match_many`` on the
 device and compares ``(pos, keyIdx)`` with :func:`brute`.  On a card the
-random public calls reach the six hand kernels at random shapes: the
+random public calls reach the seven hand kernels at random shapes: the
 module reports how many cases launched each one, and holds every launch
 against the kernel's plain version on the same inputs
 (:func:`held_to_plain`).
@@ -51,6 +51,7 @@ KERNELS = (
     ("ops.scan_cuda", "scan_states_tile"),
     ("ops.filter_cuda", "grouped_take_extract"),
     ("ops.filter_cuda", "grouped_take_refine"),
+    ("ops.filter_cuda", "verify_records"),
 )
 #: shards of the one device that an ``auto_shard`` case runs on (the
 #: reference's sweep ran an 8-device CPU mesh)
@@ -195,7 +196,7 @@ def plain_version(name: str, args: tuple, kw: dict):
     import importlib
 
     from .ops import filter_cuda
-    from .ops.filter_torch import bloom_hit_take, u32
+    from .ops.filter_torch import _verify_records_torch, bloom_hit_take, u32
     from .ops.scan_cuda import _scan_states_tile_torch
 
     mod = dict((n, m) for m, n in KERNELS)[name]
@@ -227,6 +228,12 @@ def plain_version(name: str, args: tuple, kw: dict):
             a["slot"], a["r_s"], a["w_s"], a["swo_s"], a["wc"],
             a["prefix_words"], a["mpr"], a["block_r"], a["spc"],
             a["prefix_salts"], a["prefix_log2"], a["prefix_len"])
+    if name == "verify_records":
+        return _verify_records_torch(
+            a["table"], a["byte_class"], a["used_bytes"], a["chunks"],
+            a["lengths"], a["emit_from"], a["grid_idx"], a["final_start"],
+            a["n_classes"], a["stride"], a["win_len"], a["capacity"],
+            a["n_hits"], a["step"])
     return _scan_states_tile_torch(
         a["table_flat"], a["byte_class"], a["used_bytes"], a["chunks"],
         a["init_state"], a["n_classes"], a["lengths"])
