@@ -1049,6 +1049,7 @@ class Matcher:
                 if ready is not None:
                     ready.synchronize()
                 counts = counts.reshape(len(outs), 3).tolist()
+            self.stats.filter_hits += sum(n for n, _, _ in counts)
             fits = [n <= cap_a and nr <= cap_r and nc <= cap_c
                     for n, nr, nc in counts]
             # one concatenated fetch for every in-capacity handle's records
@@ -1140,6 +1141,8 @@ class Matcher:
         with span("finish", handles=len(handles)):
             with wait(self.stats, stats):
                 stats = stats.cpu().numpy()
+            # column 0: each handle's hits summed over its shards
+            self.stats.filter_hits += int(stats[:, 0].sum())
             meta, groups = [], []
             for (rc, rp, *_), st in zip(outs, stats):
                 ok = (
@@ -1240,6 +1243,7 @@ class Matcher:
             flat = torch.cat([torch.stack([gh, gr, gc]).reshape(-1), nrs])
             with wait(self.stats, flat):
                 flat = flat.cpu().numpy()
+            self.stats.filter_hits += int(flat[0])
             state["nrs"] = flat[6:]
             return (rc, rp), int(flat[1]), int(flat[3]), int(flat[5])
 
@@ -1290,6 +1294,7 @@ class Matcher:
                 flat = torch.cat([gh, gf, gc, nfs])
                 with wait(self.stats, flat):
                     flat = flat.cpu().numpy()
+                self.stats.filter_hits += int(flat[0])
                 state["nfs"] = flat[6:]
                 return cells, int(flat[1]), int(flat[3]), int(flat[5])
 
@@ -1308,6 +1313,7 @@ class Matcher:
                     mesh, cm, chunks, lengths, capacity, collect=collect
                 )
                 counts_np, n_max = self._shard_counts(counts, gstats)
+                self.stats.filter_hits += int(counts_np.sum())
                 if n_max <= capacity:
                     break
                 capacity = _next_pow2(n_max)
@@ -1331,6 +1337,7 @@ class Matcher:
                 collect=collect,
             )
             counts_np, n_max = self._shard_counts(counts, gstats)
+            self.stats.filter_hits += int(counts_np.sum())
             if n_max <= capacity:
                 break
             capacity = _next_pow2(n_max)

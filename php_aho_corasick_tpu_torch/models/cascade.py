@@ -1121,11 +1121,15 @@ class CascadeModel:
         return self.emit_windows_arrays(packed, cells, nf)
 
     def _fetch_counts(self, *counts):
-        """The device counts of one launch as host ints, in one fetch."""
+        """The device counts of one launch as host ints, in one fetch;
+        the first, the filter's hits, is added to ``stats.filter_hits``."""
         import torch
 
         with wait(self.stats, *counts):
-            return torch.stack(counts).tolist()
+            out = torch.stack(counts).tolist()
+        if self.stats is not None:
+            self.stats.filter_hits += out[0]
+        return out
 
     def run(self, packed: PackedRows, capacity: int, dev_inputs=None):
         """Iterator facade over :meth:`run_arrays`."""

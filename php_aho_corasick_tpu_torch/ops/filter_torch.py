@@ -235,7 +235,7 @@ def filter_hits_sampled(
     no slot capacity, so it serves any density."""
     with span("filter", rows=chunks.shape[0], row_len=chunks.shape[1],
               q=q, stride=stride, bloom_bytes=words.numel() * 4,
-              probe_ops=6):
+              probe_ops=6, route="flat"):
         B, L = chunks.shape
         M = -(-L // stride)
         code_u = u32(sampled_gram_codes(chunks, q, stride))
@@ -302,7 +302,8 @@ def filter_hits_sampled_grouped(
     if words2 is not None:
         bloom_bytes += words2.numel() * 4
     with span("filter", rows=chunks.shape[0], row_len=chunks.shape[1],
-              q=q, stride=stride, bloom_bytes=bloom_bytes, probe_ops=6):
+              q=q, stride=stride, bloom_bytes=bloom_bytes, probe_ops=6,
+              route="grouped"):
         B, L = chunks.shape
         if not (stride % 4 == 0 and L % stride == 0):
             raise ValueError(
@@ -472,7 +473,7 @@ def filter_hits_sampled_vmem(
 
     with span("filter", rows=chunks.shape[0], row_len=chunks.shape[1],
               q=q, stride=stride, bloom_bytes=table.numel() * 4,
-              probe_ops=12):
+              probe_ops=12, route="vmem"):
         B, L = chunks.shape
         M = -(-L // stride)
         if not (stride % 4 == 0 and L % stride == 0 and cap_coarse <= 128):
@@ -770,7 +771,8 @@ def verify_windows_records(
     CPU one runs :func:`_verify_records_torch`."""
     from .filter_cuda import verify_records
 
-    with span("verify", capacity=capacity, hits=n_hits):
+    with span("verify", capacity=capacity, hits=n_hits,
+              table_bytes=table_flat.nbytes):
         return verify_records(
             table_flat, byte_class, used_bytes, chunks, lengths, emit_from,
             grid_idx, final_start, n_classes=n_classes, stride=stride,
@@ -801,7 +803,9 @@ def verify_windows_records_compressed(
     """:func:`verify_windows_records` over the compressed table: the walk
     is the 3-gather compressed step and finality its two-range
     predicate, with the same record slots and overflow sentinel."""
-    with span("verify", capacity=capacity, hits=n_hits):
+    with span("verify", capacity=capacity, hits=n_hits,
+              table_bytes=dense_flat.nbytes + meta.nbytes
+              + exc_target.nbytes):
         grid_idx, H, active, w0, base, row_len, row_emit = _window_geometry(
             chunks, lengths, emit_from, grid_idx, stride, n_hits
         )
@@ -850,7 +854,8 @@ def verify_windows_records2(
     :func:`verify_windows_records`."""
     from .filter_cuda import verify_records
 
-    with span("verify", capacity=capacity, hits=n_hits):
+    with span("verify", capacity=capacity, hits=n_hits,
+              table_bytes=table2_flat.nbytes):
         return verify_records(
             table2_flat, byte_class, used_bytes, chunks, lengths, emit_from,
             grid_idx, final_start, n_classes=n_classes, stride=stride,

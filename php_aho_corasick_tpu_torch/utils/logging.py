@@ -36,6 +36,10 @@ class ScanStats:
     #: fetch of counts or records), each also a ``wait`` span of
     #: ``utils.profiling``: a CUDA graph of a chain cannot cross one
     host_waits: int = 0
+    #: cascade filter survivors (grid cells whose windows the verify
+    #: walks), summed at the host's fetches of each launch's counts: a
+    #: retried launch counts again
+    filter_hits: int = 0
     last_engine: str = ""
     last_backend: str = ""
 
@@ -71,5 +75,5 @@ class ScanStats:
             f"{self.matches_emitted} matches, last={self.last_engine}/"
             f"{self.last_backend}, {self.capacity_retries} capacity "
             f"retries, {self.records_fallbacks} records fallbacks, "
-            f"{self.host_waits} host waits"
+            f"{self.host_waits} host waits, {self.filter_hits} filter hits"
         )

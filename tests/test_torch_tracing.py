@@ -288,3 +288,78 @@ def test_recording_nests_into_the_outer_block():
         ("call", None), ("chain", outer.records[0].id)]
     assert outer.records[1].attrs == {"card": "cpu"}
     assert profiling._active is None
+
+
+def _spy_chains(monkeypatch):
+    """Every records chain's filter-hit count (a device value), as
+    ``CascadeModel.launch_device_records`` returns it."""
+    from php_aho_corasick_tpu_torch.models.cascade import CascadeModel
+
+    seen = []
+    real = CascadeModel.launch_device_records
+
+    def spy(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        seen.append(out[2])
+        return out
+
+    monkeypatch.setattr(CascadeModel, "launch_device_records", spy)
+    return seen
+
+
+@pytest.mark.parametrize("route,cfg", [
+    ("vmem", {}),
+    ("grouped", {"bloom_impl": "take"}),
+    ("flat", {"bloom_impl": "take", "cascade_min_q": 7}),
+])
+def test_filter_hits_count_the_chains_survivors(route, cfg, monkeypatch):
+    """``ScanStats.filter_hits`` gains the survivors of every chain at the
+    count fetches the host makes anyway (host waits unchanged: 2 a batch,
+    one a lone handle's chain and two for its records), and the spans
+    name the filter's route and the verify table's bytes."""
+    m = _matcher(**cfg)
+    hs = _warm_handles(m)
+    cm = m.cascade_model
+    seen = _spy_chains(monkeypatch)
+    hits, waits = m.stats.filter_hits, m.stats.host_waits
+    with profiling.recording() as rec:
+        m.match_arrays_many(hs)
+    assert len(seen) == 2 and m.stats.host_waits - waits == 2
+    assert m.stats.filter_hits - hits == sum(int(n) for n in seen) > 0
+    assert [r.attrs["route"] for r in rec.records
+            if r.name == "filter"] == [route, route]
+    if route == "vmem" and cm.records2_ok:
+        table = cm.verify2_table_dev
+    else:
+        table = cm.dense_model.device_arrays["table_flat"]
+    want = table.numel() * table.element_size()
+    assert [r.attrs["table_bytes"] for r in rec.records
+            if r.name == "verify"] == [want, want]
+    seen.clear()
+    hits, waits = m.stats.filter_hits, m.stats.host_waits
+    m.match_arrays(hs[0])
+    assert len(seen) == 1 and m.stats.host_waits - waits == 3
+    assert m.stats.filter_hits - hits == int(seen[0]) > 0
+    assert "filter hits" in m.stats.summary()
+
+
+def test_filter_hits_of_sharded_batch_equal_unsharded(monkeypatch):
+    m = _matcher()
+    docs = [_docs(1), _docs(2)]
+    hits = m.stats.filter_hits
+    for d in docs:
+        m.match_arrays_many([m.device_corpus(d)])
+    unsharded = m.stats.filter_hits - hits
+    assert unsharded > 0
+    with local_shards(4):
+        hs = [m.device_corpus(d, shard=True) for d in docs]
+        hits = m.stats.filter_hits
+        for h in hs:
+            m.match_arrays(h)  # the sharded adaptive chain, a handle alone
+        assert m.stats.filter_hits - hits == unsharded
+        seen = _spy_chains(monkeypatch)
+        hits, waits = m.stats.filter_hits, m.stats.host_waits
+        m.match_arrays_many(hs)
+    assert len(seen) == 8 and m.stats.host_waits - waits == 2
+    assert m.stats.filter_hits - hits == sum(int(n) for n in seen)
+    assert m.stats.filter_hits - hits == unsharded
