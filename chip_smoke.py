@@ -51,7 +51,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``match_arrays_many([handle] * 12)`` timed, traced and sync-checked,
    never reaching the host verify (the needles are drawn apart from the
    base documents, which hold only chance occurrences of them), planted
-   needles at 64 MiB;
+   needles at 64 MiB; the flat take filter's kernel
+   (``flat_take_extract``) launched once a chain, its launch of one filter
+   call held against its plain version and timed beside it and its bound
+   (``portbench.bounds.sampled_filter_work``), and the same at one
+   chromosome of the genome cell (31,496 rows of 4,224 ACGT bytes, q 15,
+   stride 6, a 2^28-word bloom);
    take-grouped, the headline set with ``bloom_impl="take"`` on the
    headline's handle, timed with the launches of the grouped filter's two
    kernels counted (``grouped_take_extract``, ``grouped_take_refine``),
@@ -174,9 +179,9 @@ and 9a (signature-byte) also hold every records-verify launch of one
 call against its plain version and time the kernel there beside it and
 its bytes floor, at the call's capacity and at half the record count;
 every path launches it once a chain, counted with the other kernels.  The
-kernel line lists seven kernels: the four that replace the JAX package's
-Pallas kernels and the grouped take filter's two and the records verify,
-which replace XLA code of its ``filter_jax.py``.
+kernel line lists eight kernels: the four that replace the JAX package's
+Pallas kernels and the grouped take filter's two, the records verify and
+the flat take filter's, which replace XLA code of its ``filter_jax.py``.
 """
 
 import contextlib
@@ -201,6 +206,11 @@ TILE_CAPACITY = 1 << 19  # every final position of a pass in one scan
 ROWS_LEN = 13  # needle bytes of the rows path (plan stride 5)
 ANCHORED_LEN, ANCHORED_REPS, ANCHORED_PASSES = 7, 16, 3  # 32 MiB
 TAKE_NEEDLES = 16384  # the smallest measured set with no bank bloom is 8192
+# one chromosome of the genome cell's flat take filter (crispr-gecko2-grch38:
+# 129 MB in rows of 4,224 bytes, a 2^28-word bloom), and the share of its
+# bloom's words that are live: ~1.2e-3 hits a byte, the cell's density
+GENOME_ROWS, GENOME_ROW_LEN, GENOME_LOG2_WORDS = 31496, 4224, 28
+GENOME_LIVE = 0.007
 FORCE_TAKE_NEEDLE, FORCE_TAKE_REPS = b"abcdefabcdefabcd", 70000
 # bench_signatures.py --alphabet byte at its full 1M needles
 SIG_NEEDLES, SIG_LEN, SIG_MIB, SIG_DOC = 1_000_000, 16, 64, 1 << 20
@@ -1220,7 +1230,9 @@ def counts_zeroed(kernels):
 #: the four of the JAX package's Pallas kernels
 GROUPED = ("grouped_take_extract", "grouped_take_refine")
 #: the order of ``kernels`` and of every list of launch counts
-KERNEL_ORDER = "fused, rows, bloom_hit, tile, extract, refine, verify"
+KERNEL_ORDER = "fused, rows, bloom_hit, tile, extract, refine, verify, flat"
+#: kernels in that order
+N_KERNELS = 8
 
 
 def spy_calls(names, fn):
@@ -1404,16 +1416,92 @@ def grouped_check(torch, card, what, run):
     return err, times
 
 
+def flat_times(torch, card, what, call):
+    """The flat take filter's kernel on one captured call's inputs: its
+    device ms beside its plain version's and the least time of the work
+    (``portbench.bounds.sampled_filter_work``: the corpus once, 4 bytes
+    and 6 operations a probe; the metric ``take_filter_roofline_pct``'s
+    floor), and what the probes' 32-byte sectors would add to it."""
+    from php_aho_corasick_tpu_torch.ops import filter_cuda
+    from php_aho_corasick_tpu_torch.soak import plain_version
+    from portbench.bounds import sampled_filter_work
+
+    name = "flat_take_extract"
+    args, kw, out = call
+    a = bound_args(name, args, kw)
+    k_ms = cuda_ms(lambda: filter_cuda.flat_take_extract(*args, **kw), 20)
+    p_ms = cuda_ms(lambda: plain_version(name, args, kw), 3)
+    rows, row_len = a["chunks"].shape
+    b = sampled_filter_work(rows, row_len, a["q"], a["stride"],
+                            a["words"].numel() * 4, 6)
+    sectors = 28 * rows * -(-row_len // a["stride"])
+    log(f"{name} at the {what} shape (chunks {tuple(a['chunks'].shape)}, "
+        f"q {a['q']}, stride {a['stride']}, {len(a['salts'])} salt(s), "
+        f"2^{a['log2_words']}-word bloom, capacity {a['capacity']}, "
+        f"{int(out[3])} hits): bit-equal to its plain version; "
+        f"{k_ms:.4f} ms (plain {p_ms:.4f} ms, bound "
+        f"{b['seconds'] * 1e3:.6f} ms by {b['by']}: {b['bytes']} bytes, "
+        f"{b['ops']} ops, {100 * b['seconds'] * 1e3 / k_ms:.2f}% of it; the "
+        f"first probes' 32-byte sectors add {sectors} bytes, "
+        f"{sectors / HBM_BYTES_PER_S * 1e3:.6f} ms); on {card}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b["seconds"] * 1e3,
+            "bound_by": b["by"]}
+
+
+def flat_check(torch, card, what, run):
+    """The flat take filter of one cell (``run()``: one filter call on its
+    handle): its one launch held against its plain version, then
+    :func:`flat_times`.  Returns the largest difference and the times."""
+    name = "flat_take_extract"
+    _, calls = spy_calls((name,), run)
+    assert len(calls[name]) == 1, f"{what}: {len(calls[name])} launches"
+    err = held_to_plain(torch, name, calls[name][0], f"at the {what} shape")
+    return err, flat_times(torch, card, what, calls[name][0])
+
+
+def flat_genome_check(torch, card):
+    """The flat take filter's kernel at one chromosome of the genome cell:
+    ``GENOME_ROWS`` rows of ``GENOME_ROW_LEN`` random ACGT bytes, its plan
+    (q 15, stride 6, one salt, a ``2**GENOME_LOG2_WORDS``-word bloom, a
+    capacity of 2^18), the bloom's words live at ``GENOME_LIVE``: one launch, held against its
+    plain version and timed (:func:`flat_times`)."""
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import flat_take_extract
+    from php_aho_corasick_tpu_torch.ops.filter_torch import to_i32
+
+    g = torch.Generator(device=DEVICE).manual_seed(20)
+    pool = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=DEVICE)
+    chunks = pool[torch.randint(0, 4, (GENOME_ROWS, GENOME_ROW_LEN),
+                                generator=g, device=DEVICE)]
+    n = 1 << GENOME_LOG2_WORDS
+    bits = torch.randint(1, 1 << 6, (n,), generator=g, device=DEVICE)
+    live = torch.rand(n, generator=g, device=DEVICE) < GENOME_LIVE
+    words = to_i32(torch.where(live, bits, 0))
+    del bits, live
+    mll = torch.tensor(20, dtype=torch.int32, device=DEVICE)
+    kw = dict(q=15, stride=6, log2_words=GENOME_LOG2_WORDS,
+              salts=(0x85EBCA6B,), capacity=1 << 18)
+    before = flat_take_extract.launches
+    out = flat_take_extract(words, chunks, None, mll, **kw)
+    assert flat_take_extract.launches == before + 1
+    call = ((words, chunks, None, mll), kw, out)
+    err = held_to_plain(torch, "flat_take_extract", call,
+                        "at a genome chromosome's shape")
+    assert 0 < int(out[3]) <= kw["capacity"], int(out[3])
+    return err, flat_times(torch, card, "genome chromosome", call)
+
+
 def phase_take_path(torch, base, card, head, kernels):
-    """The sampled take filters: take-flat at 16,384 needles (no filter
-    kernel; the records verify on its int32 dense table), take-grouped on
-    the headline's handle (the grouped filter's two kernels and the
-    records verify on the int16 dense table), force-take.  ``head`` is the
+    """The sampled take filters: take-flat at 16,384 needles (the flat
+    take filter's kernel; the records verify on its int32 dense table),
+    take-grouped on the headline's handle (the grouped filter's two
+    kernels and the records verify on the int16 dense table), force-take;
+    the flat kernel at a genome chromosome's shape.  ``head`` is the
     headline's ``(needles, handle, warm result)``.  Returns the hand
     kernels' launches of both timed batches, the grouped kernels' largest
     difference from their plain versions and their times at its shapes
-    (:func:`grouped_check`), and the records verify's
-    (:func:`verify_check`) by shape."""
+    (:func:`grouped_check`), the records verify's (:func:`verify_check`)
+    by shape, and the flat kernel's largest difference and times by shape
+    (:func:`flat_check`)."""
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
 
     docs = [row.tobytes() for row in base] * HEADLINE_REPS
@@ -1459,8 +1547,10 @@ def phase_take_path(torch, base, card, head, kernels):
     flat_launched = launched_of(kernels)
     assert m.stats.records_fallbacks == fallbacks, "batch fell back"
     assert not any(flat_launched[:6]), (
-        f"take-flat launched filter kernels: {flat_launched}")
-    assert flat_launched[6] >= BATCH, f"take-flat: {flat_launched}"
+        f"take-flat launched other filter kernels: {flat_launched}")
+    # the flat kernel once a chain, as the records verify
+    assert flat_launched[7] == flat_launched[6] >= BATCH, (
+        f"take-flat: {flat_launched}")
     assert not cm._force_take and cm.take_branch(L) == "flat"
     for r in res:
         for key in r:
@@ -1478,6 +1568,9 @@ def phase_take_path(torch, base, card, head, kernels):
         f"verify; device time of the flat "
         f"filter {f_ms:.3f} ms, of filter + record verify {c_ms:.3f} ms "
         f"(capacity {max(cm._cap_hits, 256)}); on {card}")
+    flat = {"take-flat": flat_check(
+        torch, card, "take-flat", lambda: cm.scan_hits_sampled(
+            h.chunks_d, h.lengths_d, max(cm._cap_hits, 256)))}
     # one pass's host half: the fetch of the records and their expansion
     rc, rp, _, nr_d, _ = cm.launch_device_records(
         h.chunks_d, h.lengths_d, h.emit_from_d, max(cm._cap_hits, 256),
@@ -1523,8 +1616,9 @@ def phase_take_path(torch, base, card, head, kernels):
         torch, lambda: mg.match_arrays_many([hh] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
     launched = launched_of(kernels)
-    assert min(launched[4:]) >= BATCH, f"grouped kernels, verify: {launched}"
-    assert not any(launched[:4]), f"take-grouped launched others: {launched}"
+    assert min(launched[4:7]) >= BATCH, f"grouped kernels, verify: {launched}"
+    assert not any(launched[:4]) and not launched[7], (
+        f"take-grouped launched others: {launched}")
     assert mg.stats.records_fallbacks == fallbacks, "batch fell back"
     assert cg.take_branch(L) == "grouped"
     for r in res:
@@ -1580,8 +1674,10 @@ def phase_take_path(torch, base, card, head, kernels):
         f"take filter in the first call ({first_s:.3f} s, host clock); a "
         f"second call on the same matcher equal, {ms:.3f} ms by CUDA events "
         f"({wall:.3f} ms wall); on {card}")
+    del mf, cf
     launched = [a + b for a, b in zip(flat_launched, launched)]
-    return launched, err, times, vr_shapes
+    flat["genome chromosome"] = flat_genome_check(torch, card)
+    return launched, err, times, vr_shapes, flat
 
 
 def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
@@ -2683,8 +2779,8 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
     by trace, no host sync in the sharded dispatch; (b) phase 4's planted
     64 MiB sharded: every planted needle found, records equal to phase
     4's, per-shard record counts equal to a host split; (c) ``match_arrays`` sharded through the tile, dfa, k-gram,
-    anchored, rows, take-grouped, headline-compressed and signature-byte
-    cells, each equal to its unsharded records, the compressed table held
+    anchored, rows, take-flat (the rows set on the flat take filter),
+    take-grouped, headline-compressed and signature-byte cells, each equal to its unsharded records, the compressed table held
     once on the card; (d) ``dryrun_multichip(SHARDS, "cuda")``; (e) two
     processes on the card over 16 MiB of planted documents.  Each kernel's first launch of the phase, at a
     shard's shape, is held against its plain version.  Returns the hand
@@ -2815,9 +2911,12 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
                                        match_capacity=TILE_CAPACITY),
                      device=DEVICE)
         cell("kgram", mk, mk.device_corpus(tdocs, shard=True), res_tile)
-        for name, length, cfg in (
-            ("anchored", ANCHORED_LEN, dict(engine="cascade")),
-            ("rows", ROWS_LEN, {}),
+        for name, length, cfg, kernel in (
+            ("anchored", ANCHORED_LEN, dict(engine="cascade"), "bloom_hit"),
+            ("rows", ROWS_LEN, {}, "bloom_word_vmem"),
+            # the rows set on the take route: stride 5, the flat filter
+            ("take-flat", ROWS_LEN, dict(bloom_impl="take"),
+             "flat_take_extract"),
         ):
             mm = Matcher([{"id": i, "value": p}
                           for i, p in enumerate(needle_set(length))],
@@ -2825,9 +2924,10 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
                          device=DEVICE)
             cdocs = tdocs[:n8] if name == "anchored" else tdocs
             want = mm.match_arrays(mm.device_corpus(cdocs, shard=False))
+            if name == "take-flat":
+                assert mm.cascade_model.take_branch(4096) == "flat"
             cell(name, mm, mm.device_corpus(cdocs, shard=True), want,
-                 (filter_cuda, "bloom_hit" if name == "anchored"
-                  else "bloom_word_vmem"))
+                 (filter_cuda, kernel))
         specs_h = [{"id": i, "value": v} for i, v in enumerate(needles)]
         mg = Matcher(specs_h, ScanConfig(backend="device", chunk_len=4096,
                                          bloom_impl="take"), device=DEVICE)
@@ -3177,7 +3277,8 @@ def phase_hex_grouped(torch, card, kernels):
     counts_zeroed(kernels)
     res = m.match_arrays(h)
     launched = launched_of(kernels)
-    assert min(launched[4:]) > 0 and not any(launched[:4]), launched
+    assert min(launched[4:7]) > 0 and not any(launched[:4]), launched
+    assert not launched[7], launched
     n = res["doc"].shape[0]
     assert n >= n_planted == 200, (n, n_planted)
     cap_a, _ = cm.learned_caps
@@ -3417,6 +3518,7 @@ def main(argv=None):
     from php_aho_corasick_tpu_torch.ops.filter_cuda import (
         bloom_hit as bh,
         bloom_word_vmem as bwv,
+        flat_take_extract as fte,
         fused_launch_shape,
         fused_sampled_extract as fse,
         grouped_take_extract as gte,
@@ -3581,8 +3683,8 @@ def main(argv=None):
     hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], hit_err)
 
     # 8. the take filters: the grouped one on its two kernels
-    kernels = (fse, bwv, bh, sst, gte, gtr, vr)
-    take_launched, take_err, take_times, vr_shapes = phase_take_path(
+    kernels = (fse, bwv, bh, sst, gte, gtr, vr, fte)
+    take_launched, take_err, take_times, vr_shapes, flat = phase_take_path(
         torch, base, card, (needles, h, warm), kernels)
     grouped = {}
     for name in GROUPED:
@@ -3614,17 +3716,29 @@ def main(argv=None):
         **next(iter(vr_times.values())),  # at the headline's shape
         "library_ms": None,
     }
-    # the six kernel lines after the fused kernel, in the order of
+    flat_kernel = {
+        "name": "flat_take_extract",
+        "route": "cuda",
+        "source": "php_aho_corasick_tpu_torch/csrc/flat_take_extract.cu",
+        # XLA code of the reference: the flat take filter's codes, probes
+        # and compaction
+        "replaces": "php_aho_corasick_tpu/ops/filter_jax.py:214",
+        "launches": 0,
+        "max_abs_err": max(e for e, _ in flat.values()),
+        **flat["take-flat"][1],  # at the take-flat cell's shapes
+        "library_ms": None,
+    }
+    # the seven kernel lines after the fused kernel, in the order of
     # ``kernels`` (the fused kernel's launches are counted apart)
     others = (rows_kernel, hit_kernel, tile_kernel, *grouped.values(),
-              verify_kernel)
+              verify_kernel, flat_kernel)
 
     def count(launched, errs=None):
         nonlocal launches
         launches += launched[0]
         for k, n in zip(others, launched[1:]):
             k["launches"] += n
-        for k, e in zip(others, (errs or [0] * 7)[1:]):
+        for k, e in zip(others, (errs or [0] * N_KERNELS)[1:]):
             k["max_abs_err"] = max(k["max_abs_err"], e)
 
     count(take_launched)
@@ -3637,7 +3751,7 @@ def main(argv=None):
     kgram_launched = phase_kgram_path(torch, card, kernels, tile_cell)
     for launched in (sig_launched, comp_launched, kgram_launched):
         count(launched)
-    count([0] * 7, [0, 0, 0, 0, sig_err, sig_err, 0])
+    count([0] * N_KERNELS, [0, 0, 0, 0, sig_err, sig_err, 0, 0])
 
     # 10. serving and streaming: the fresh-corpus pipeline, the cross-batch
     # double buffer, the stream's two carries, iter_matches, replace, warmup
@@ -3650,14 +3764,14 @@ def main(argv=None):
     shard_launched, shard_err = phase_shard_path(
         torch, card, kernels, (needles, m, h, warm), (hd, rd), tile_cell, sig,
         base)
-    count(shard_launched, [shard_err] * 7)
+    count(shard_launched, [shard_err] * N_KERNELS)
     err2 = max(err2, shard_err)
 
     # 12. the native builder, matcher files, profiling, the CLI, examples
     rest_launched, rest_err = phase_remaining_surface(
         torch, card, kernels, (needles, m, h, warm, base), (hd, rd), sig,
         sig_build_s)
-    count(rest_launched, [rest_err] * 7)
+    count(rest_launched, [rest_err] * N_KERNELS)
     err2 = max(err2, rest_err)
 
     # 13. the randomized soak's fixed slice, in a subprocess
@@ -3671,7 +3785,7 @@ def main(argv=None):
     hex_launched, hex_err, hex_times, vr_shapes["signature-hex"] = (
         phase_hex_grouped(torch, card, kernels))
     count(hex_launched, [0, 0, 0, 0, hex_err, hex_err,
-                         vr_shapes["signature-hex"][0]])
+                         vr_shapes["signature-hex"][0], 0])
     bench_launched, bench_err = phase_bench(card, m.automaton, needles,
                                             [row.tobytes() for row in base])
     count(bench_launched, bench_err)
@@ -3699,7 +3813,11 @@ def main(argv=None):
         "bound_by": b_by,
         "library_ms": None,
     }, tile_kernel, rows_kernel, hit_kernel, *grouped.values(),
-        verify_kernel]
+        verify_kernel, flat_kernel]
+    log("flat_take_extract at two shapes, ms (plain, bound): " + "; ".join(
+        f"{what} {t['ms']:.4f} ({t['plain_ms']:.4f}, {t['bound_ms']:.6f} by "
+        f"{t['bound_by']})" for what, (_, t) in flat.items())
+        + f"; on {card}")
     vr_shapes = {"headline": (err_h, vr_times),
                  "planted": (err_p, vr_planted), **vr_shapes}
     log("verify_records by shape and capacity, ms (plain, bytes floor): "

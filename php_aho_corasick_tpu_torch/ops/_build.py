@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = (
     "fused_sampled_extract", "scan_states_tile", "bloom_word_vmem",
     "bloom_hit", "grouped_take_extract", "grouped_take_refine",
-    "verify_records",
+    "verify_records", "flat_take_extract",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

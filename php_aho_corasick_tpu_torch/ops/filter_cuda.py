@@ -28,6 +28,14 @@ code (``filter_jax.filter_hits_sampled_grouped``), not a Pallas kernel:
   the pass that computes the slot); plain version
   :func:`_grouped_refine_torch`.
 
+and one for the flat take filter (``filter_torch.filter_hits_sampled``),
+whose reference is XLA code too (``filter_jax.filter_hits_sampled``):
+
+- :func:`flat_take_extract` (``csrc/flat_take_extract.cu``), every grid
+  cell's code and probes under every salt, the gate, the hit test and
+  the hits' compaction in ascending cell order; plain version
+  ``filter_torch._flat_extract_torch``.
+
 and one for the records verify (``filter_torch.verify_windows_records``
 and ``verify_windows_records2``), whose reference is XLA code too
 (``filter_jax.verify_windows_records``, ``verify_windows_records2``):
@@ -64,8 +72,8 @@ import torch
 
 from .filter_torch import (
     FUSED_BLOCK_R, GRAM_BASE, GRAM_BASE2, INT32_MAX, KNUTH, SALT2, U32_MASK,
-    _planes_code, _salted_probe, _verify_records_torch, _word_planes,
-    bloom_hit_take, bloom_slots, mul32, to_i32, u32,
+    _flat_extract_torch, _planes_code, _salted_probe, _verify_records_torch,
+    _word_planes, bloom_hit_take, bloom_slots, mul32, to_i32, u32,
 )
 
 
@@ -862,6 +870,119 @@ def grouped_take_refine(
 
 
 grouped_take_refine.launches = 0
+
+
+#: C signature of ``flat_take_extract_launch`` (csrc/flat_take_extract.cu)
+FLAT_ARGTYPES = [
+    _P, _LL, _I,  # chunks, rows, row_len
+    _P, _I, _P, _I,  # words, log2_words, salts, k
+    _P, _P, _P,  # sw, mll, gram weight bytes
+    _I, _I, _I,  # q, stride, capacity
+    _P, _P,  # scratch, n_hits
+    _P, _P, _P,  # idx, lw, swo
+    _P,  # stream
+]
+
+
+def _flat_lib():
+    from ._build import load_library
+
+    lib = load_library("flat_take_extract")
+    if lib.flat_take_extract_launch.argtypes is None:
+        lib.flat_take_extract_launch.argtypes = FLAT_ARGTYPES
+        lib.flat_take_extract_launch.restype = ctypes.c_int
+        lib.flat_take_extract_scratch_words.argtypes = [_LL, _I]
+        lib.flat_take_extract_scratch_words.restype = _LL
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _flat_consts(q, salts):
+    gram_b = [v for row in gram_weight_bytes(q) for v in row]
+    return _u32_array(salts, len(salts)), _u32_array(gram_b, 16)
+
+
+def check_flat_inputs(words, chunks, sw, mll, *, q, stride, log2_words,
+                      salts, capacity):
+    """Raise on what ``csrc/flat_take_extract.cu`` does not take: q 1-16,
+    1-8 salts, stride 1-32, ``log2_words`` 5-31, ``capacity`` >= 1, a grid
+    under 2^31 cells; every tensor on ``words``' device and contiguous,
+    ``words`` int32 ``[2**log2_words]``, ``chunks`` uint8 ``[B, L]``,
+    ``sw`` None or int32 ``[B, ceil(L / stride)]``, ``mll`` one int32."""
+    if not (1 <= q <= 16 and 1 <= len(salts) <= 8 and 1 <= stride <= 32
+            and 5 <= log2_words <= 31 and capacity >= 1):
+        raise ValueError("flat_take_extract: unsupported configuration")
+    dev = words.device
+    _check("words", words, (1 << log2_words,), dev)
+    if chunks.dim() != 2:
+        raise ValueError("chunks: expected [B, L]")
+    B, L = chunks.shape
+    M = -(-L // stride)
+    if B * M >= 2**31 - 2**15:
+        raise ValueError("flat_take_extract: grid of 2^31 cells or more")
+    _check("chunks", chunks, (B, L), dev, torch.uint8)
+    if sw is not None:
+        _check("sw", sw, (B, M), dev)
+    _check("mll", mll, mll.shape, dev)
+    if mll.numel() != 1:
+        raise ValueError("mll: expected one value")
+
+
+def flat_take_extract(
+    words: torch.Tensor,  # [2**log2_words] int32 positional bloom
+    chunks: torch.Tensor,  # [B, L] uint8
+    sw: Optional[torch.Tensor],  # [B, M] int32 short-start words, or None
+    mll: torch.Tensor,  # scalar int32 min_long_len (0: no long path)
+    *,
+    q: int,
+    stride: int,
+    log2_words: int,
+    salts: tuple,
+    capacity: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The flat take filter's grid work and compaction.  Every grid cell
+    ``g = b * M + m`` (``M = ceil(L / stride)``) takes the ``GRAM_BASE``
+    code of its row's bytes ``m * stride .. + q`` (zeros past the row) and
+    ANDs its positional-bloom words under every salt, gated on ``mll``;
+    it hits where that word or its short word is nonzero.  The first
+    ``capacity`` hits in ascending ``g`` are kept.  Returns ``(idx
+    [capacity], long_word, short_word, n_hits)``: the hits' cells
+    (``INT32_MAX`` after them), their words (0 after them), and the count
+    of every hit.
+
+    A CUDA ``words`` launches ``csrc/flat_take_extract.cu`` (counted in
+    ``flat_take_extract.launches``), after :func:`check_flat_inputs`; a
+    CPU one runs ``filter_torch._flat_extract_torch``."""
+    if not words.is_cuda:
+        return _flat_extract_torch(words, chunks, sw, mll, q, stride,
+                                   log2_words, salts, capacity)
+    check_flat_inputs(words, chunks, sw, mll, q=q, stride=stride,
+                      log2_words=log2_words, salts=salts, capacity=capacity)
+    dev = words.device
+    B, L = chunks.shape
+    lib = _flat_lib()
+    scratch = torch.empty(
+        lib.flat_take_extract_scratch_words(B * -(-L // stride), stride),
+        dtype=torch.int32, device=dev)
+    idx, lw, swo = (torch.empty(capacity, dtype=torch.int32, device=dev)
+                    for _ in range(3))
+    n_hits = torch.empty((), dtype=torch.int32, device=dev)
+    salts_a, gram_b = _flat_consts(q, tuple(salts))
+    rc = lib.flat_take_extract_launch(
+        chunks.data_ptr(), B, L, words.data_ptr(), log2_words, salts_a,
+        len(salts), sw.data_ptr() if sw is not None else None,
+        mll.data_ptr(), gram_b, q, stride, capacity, scratch.data_ptr(),
+        n_hits.data_ptr(), idx.data_ptr(), lw.data_ptr(), swo.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"flat_take_extract kernel launch failed: CUDA error {rc}")
+    flat_take_extract.launches += 1
+    return idx, lw, swo, n_hits
+
+
+flat_take_extract.launches = 0
 
 
 #: C signature of ``verify_records_launch`` (csrc/verify_records.cu)

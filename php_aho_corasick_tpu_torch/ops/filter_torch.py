@@ -14,10 +14,12 @@ Without a bank bloom the take filters probe the positional bloom itself
 by gathers: :func:`filter_hits_sampled_grouped` (one salt over the grid,
 the rest per extracted slot, then a prefix-bloom refinement: the kernels
 ``ops/filter_cuda.grouped_take_extract`` and ``grouped_take_refine``)
-where the stride gate holds, else the flat :func:`filter_hits_sampled`.  Either way the hits are compacted and
-verified by an exact DFA walk over their candidate windows, which emits
-compacted ``(cell, state*32 + j)`` match records for the host to
-expand (on a card the dense and 2-step walks and their compaction are one
+where the stride gate holds, else the flat :func:`filter_hits_sampled`
+(every cell probed under every salt and the hits compacted in cell order:
+``ops/filter_cuda.flat_take_extract``).  Either way the hits are
+compacted and verified by an exact DFA walk over their candidate windows,
+which emits compacted ``(cell, state*32 + j)`` match records for the host
+to expand (on a card the dense and 2-step walks and their compaction are one
 launch of ``ops/filter_cuda.verify_records``).  **Anchored**
 (:func:`filter_candidates`): every position is tested as a match start
 against 1-3 staged bit blooms of class q-gram codes; the survivors are
@@ -210,6 +212,25 @@ def _salted_probe(words: torch.Tensor, code_u: torch.Tensor, salt: int,
     return words[mul32(code_u ^ salt, KNUTH) >> (32 - log2_words)]
 
 
+def _flat_extract_torch(words, chunks, sw, mll, q, stride, log2_words,
+                        salts, capacity):
+    """Plain PyTorch version of ``filter_cuda.flat_take_extract`` (the flat
+    take filter's codes, probes, gate and ordered compaction); runs on any
+    device."""
+    code_u = u32(sampled_gram_codes(chunks, q, stride))
+    w = None
+    for salt in salts:
+        probe = _salted_probe(words, code_u, salt, log2_words)
+        w = probe if w is None else (w & probe)
+    w = torch.where(mll > 0, w, 0).reshape(-1)
+    sw = sw.reshape(-1) if sw is not None else torch.zeros_like(w)
+    idx, n_hits = blocked_nonzero((w | sw) != 0, capacity)
+    safe = torch.clamp(idx, max=w.shape[0] - 1).long()
+    valid = idx < INT32_MAX
+    return (idx, torch.where(valid, w[safe], 0),
+            torch.where(valid, sw[safe], 0), n_hits)
+
+
 def filter_hits_sampled(
     words: torch.Tensor,  # [2**log2_words] int32 positional bloom
     chunks: torch.Tensor,  # [B, L] uint8
@@ -229,31 +250,26 @@ def filter_hits_sampled(
     coincide), gated on ``min_long_len``; short-pattern starts are exact.
     The grid hits are compacted in ascending cell order.
 
+    The codes, probes, gate and compaction are one call of
+    :func:`~.filter_cuda.flat_take_extract` (its kernel on a CUDA tensor,
+    its plain version on a CPU one); the short-start words are made here,
+    and only where the plan has shorts.
+
     Returns ``(grid_idx [capacity] flattened b * M + m ascending,
     INT32_MAX-padded, long_word, short_word, n_hits)`` as device values;
     retry with a bigger ``capacity`` when ``n_hits`` exceeds it.  It has
     no slot capacity, so it serves any density."""
+    from .filter_cuda import flat_take_extract
+
     with span("filter", rows=chunks.shape[0], row_len=chunks.shape[1],
               q=q, stride=stride, bloom_bytes=words.numel() * 4,
               probe_ops=6, route="flat"):
-        B, L = chunks.shape
-        M = -(-L // stride)
-        code_u = u32(sampled_gram_codes(chunks, q, stride))
-        w = None
-        for salt in salts:
-            probe = _salted_probe(words, code_u, salt, log2_words)
-            w = probe if w is None else (w & probe)
-        w = torch.where(min_long_len > 0, w, 0)
-        if shorts:
-            sw = _short_start_words(chunks, lengths, shorts, stride, M)
-        else:
-            sw = torch.zeros_like(w)
-        w, sw = w.reshape(-1), sw.reshape(-1)
-        idx, n_hits = blocked_nonzero((w | sw) != 0, capacity)
-        safe = torch.clamp(idx, max=B * M - 1).long()
-        valid = idx < INT32_MAX
-        return (idx, torch.where(valid, w[safe], 0),
-                torch.where(valid, sw[safe], 0), n_hits)
+        M = -(-chunks.shape[1] // stride)
+        sw = (_short_start_words(chunks, lengths, shorts, stride, M)
+              if shorts else None)
+        return flat_take_extract(
+            words, chunks, sw, min_long_len, q=q, stride=stride,
+            log2_words=log2_words, salts=tuple(salts), capacity=capacity)
 
 
 def filter_hits_sampled_grouped(

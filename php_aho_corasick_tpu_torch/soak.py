@@ -52,6 +52,7 @@ KERNELS = (
     ("ops.filter_cuda", "grouped_take_extract"),
     ("ops.filter_cuda", "grouped_take_refine"),
     ("ops.filter_cuda", "verify_records"),
+    ("ops.filter_cuda", "flat_take_extract"),
 )
 #: shards of the one device that an ``auto_shard`` case runs on (the
 #: reference's sweep ran an 8-device CPU mesh)
@@ -228,6 +229,10 @@ def plain_version(name: str, args: tuple, kw: dict):
             a["slot"], a["r_s"], a["w_s"], a["swo_s"], a["wc"],
             a["prefix_words"], a["mpr"], a["block_r"], a["spc"],
             a["prefix_salts"], a["prefix_log2"], a["prefix_len"])
+    if name == "flat_take_extract":
+        return filter_cuda._flat_extract_torch(
+            a["words"], a["chunks"], a["sw"], a["mll"], a["q"], a["stride"],
+            a["log2_words"], a["salts"], a["capacity"])
     if name == "verify_records":
         return _verify_records_torch(
             a["table"], a["byte_class"], a["used_bytes"], a["chunks"],

@@ -201,7 +201,8 @@ def test_headline_record(headline_draws):
     assert set(rec["kernels"]) == {"fused_sampled_extract", "bloom_word_vmem",
                                    "bloom_hit", "scan_states_tile",
                                    "grouped_take_extract",
-                                   "grouped_take_refine", "verify_records"}
+                                   "grouped_take_refine", "verify_records",
+                                   "flat_take_extract"}
     needles, base_docs = headline_draws
     docs = headline.corpus(base_docs, 1 << 20)
     assert d["matches"] == _jax_arrays(needles, docs)["doc"].shape[0] == 0

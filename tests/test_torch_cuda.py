@@ -23,11 +23,14 @@ from php_aho_corasick_tpu_torch.ops.filter_cuda import (  # noqa: E402
     _grouped_refine_torch,
     bloom_hit,
     bloom_word_vmem,
+    flat_take_extract,
     fused_sampled_extract,
     grouped_take_extract,
     grouped_take_refine,
 )
 from php_aho_corasick_tpu_torch.ops.filter_torch import (  # noqa: E402
+    _flat_extract_torch,
+    _short_start_words,
     blocked_nonzero,
     bloom_hit_take,
     to_i32,
@@ -506,6 +509,93 @@ def test_grouped_take_kernels_at_path_shapes(cuda, shape):
         assert torch.equal(x, y)
 
 
+def _flat_inputs(dev, seed, B, L, stride, log2_words, dens, shorts, mll,
+                 offset, alphabet):
+    """Random flat-take inputs made on ``dev`` from a seeded generator:
+    ``[B, L]`` corpus bytes (over ``alphabet``, or any byte) viewed from
+    ``offset`` bytes into their buffer, so the rows start off a 16-byte
+    boundary; row lengths with a zero-length row first; a positional
+    bloom whose words are nonzero at ``dens`` (the top alignment bit
+    included); the short-start words of ``shorts``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.randint(0, 256, (offset + B * L,), generator=g,
+                        dtype=torch.int64, device=dev).to(torch.uint8)
+    if alphabet:
+        pool = torch.tensor(list(alphabet), dtype=torch.uint8, device=dev)
+        raw = pool[raw.long() % len(alphabet)]
+    chunks = raw[offset:].view(B, L)
+    lengths = torch.randint(0, L + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = 0
+    n = 1 << log2_words
+    bits = torch.randint(0, 1 << stride, (n,), generator=g, device=dev,
+                         dtype=torch.int64) | (1 << (stride - 1))
+    live = torch.rand(n, generator=g, device=dev) < dens
+    words = to_i32(torch.where(live, bits, 0))
+    M = -(-L // stride)
+    sw = (_short_start_words(chunks, lengths, shorts, stride, M)
+          if shorts else None)
+    return words, chunks, sw, torch.tensor(mll, dtype=torch.int32, device=dev)
+
+
+FLAT_CASES = [
+    # B, L, stride, q, k, shorts, mll, capacity, dens, offset, alphabet,
+    # log2_words
+    # the genome's class: tiles of 5,120 cells end inside rows of 704
+    (40, 4224, 6, 15, 1, (), 1, 8192, 0.02, 0, b"ACGT", 16),
+    (40, 4224, 6, 15, 1, (), 1, 64, 0.02, 0, b"ACGT", 16),  # capacity < hits
+    # grams past the row's end, shorts, rows off 16 bytes, three salts
+    (33, 1000, 7, 16, 3, (b"\x07", b"\x01\x02"), 1, 4096, 0.3, 3, None, 13),
+    (17, 700, 10, 10, 8, (b"\x05",), 0, 4096, 0.5, 0, None, 12),  # mll 0
+    (9, 4096, 32, 12, 2, (), 1, 2048, 0.2, 5, None, 14),  # bit 31 alignments
+    (3, 5000, 1, 1, 2, (), 1, 30000, 0.1, 1, None, 10),  # tiles of 32,768
+    (1, 5, 4, 9, 1, (b"\x09",), 1, 16, 0.5, 7, None, 8),  # one short row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,L,stride,q,k,shorts,mll,capacity,dens,offset,alphabet,log2_words",
+    FLAT_CASES)
+def test_flat_take_extract_matches_plain(cuda, B, L, stride, q, k, shorts,
+                                         mll, capacity, dens, offset,
+                                         alphabet, log2_words):
+    words, chunks, sw, mll_t = _flat_inputs(
+        cuda, B * stride + q, B, L, stride, log2_words, dens, shorts, mll,
+        offset, alphabet)
+    kw = dict(q=q, stride=stride, log2_words=log2_words, salts=_salts(k),
+              capacity=capacity)
+    before = flat_take_extract.launches
+    got = flat_take_extract(words, chunks, sw, mll_t, **kw)
+    want = _flat_extract_torch(words, chunks, sw, mll_t, *kw.values())
+    torch.cuda.synchronize()
+    assert flat_take_extract.launches == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.int32
+        assert x.shape == y.shape and torch.equal(x, y)
+    n = int(got[3])
+    assert n > 0
+    if capacity == 64:
+        assert n > capacity
+
+
+@pytest.mark.cuda
+def test_flat_take_extract_raises_on_card(cuda):
+    words, chunks, sw, mll = _flat_inputs(cuda, 1, 4, 64, 8, 10, 0.1, (), 1,
+                                          0, None)
+    kw = dict(q=9, stride=8, log2_words=10, salts=_salts(2), capacity=64)
+    before = flat_take_extract.launches
+    for bad in (dict(q=17), dict(salts=_salts(9)), dict(stride=33),
+                dict(capacity=0)):
+        with pytest.raises(ValueError):
+            flat_take_extract(words, chunks, sw, mll, **dict(kw, **bad))
+    with pytest.raises(TypeError):
+        flat_take_extract(words.long(), chunks, sw, mll, **kw)
+    with pytest.raises(ValueError):
+        flat_take_extract(words, chunks.t(), sw, mll, **kw)
+    assert flat_take_extract.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("length,alphabet", [
     (13, b"abcdef"),  # the per-row filter (stride 5)
@@ -554,7 +644,8 @@ def test_take_paths_card_equal_cpu(cuda, impl, n, branch):
     specs = [{"id": i, "value": p} for i, p in enumerate(needles)]
     cfg = port.ScanConfig(chunk_len=4096, bloom_impl=impl)
     res = []
-    kernels = (grouped_take_extract, grouped_take_refine, bloom_hit)
+    kernels = (grouped_take_extract, grouped_take_refine, bloom_hit,
+               flat_take_extract)
     before = [k.launches for k in kernels]
     for device in (cuda, "cpu"):
         m = port.Matcher(specs, cfg, device=device)
@@ -569,9 +660,10 @@ def test_take_paths_card_equal_cpu(cuda, impl, n, branch):
             # launches), and no bloom_hit
             if branch == "grouped":
                 assert launched[0] == launched[1] >= 2, launched
-                assert launched[2] == 0, launched
+                assert launched[2:] == [0, 0], launched
             else:
-                assert launched == [0, 0, 0], launched
+                assert launched[:3] == [0, 0, 0], launched
+                assert launched[3] >= 2, launched
     for a, b in zip(*res):
         for key in a:
             np.testing.assert_array_equal(a[key], b[key])

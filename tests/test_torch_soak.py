@@ -228,6 +228,13 @@ KERNEL_FAULTS = {
         lambda out: (out[0], torch.where(out[0] < 2**31 - 1, out[1] | 1,
                                          out[1]), out[2]),
     ),
+    "flat_take_extract": (
+        (b"abcdefgh0123", 35, (10, 10),  # stride 6: the flat take filter
+         dict(chunk_len=1024, match_capacity=16, bloom_impl="take")),
+        # alignment bit 0 added to every hit's long word
+        lambda out: (out[0], torch.where(out[0] < 2**31 - 1, out[1] | 1,
+                                         out[1]), *out[2:]),
+    ),
 }
 
 

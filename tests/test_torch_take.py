@@ -70,14 +70,17 @@ def test_sampled_codes_match_jax(q, stride, L):
             np.testing.assert_array_equal(planes.numpy(), got.numpy())
 
 
-def _bloom_case(seed, stride, q, B=6, n_rows=48, log2_words=13, shorts=()):
-    """A corpus over ``abc`` and a positional bloom whose words hold a few
-    random alignment bits (each set at ~1.5/stride), with a quarter of the
-    grid cells' grams inserted under both salts at one alignment, the top
-    one (bit ``stride - 1``) included, so single-alignment hits are many."""
+def _bloom_case(seed, stride, q, B=6, n_rows=48, log2_words=13, shorts=(),
+                alphabet=b"abc"):
+    """A corpus over ``alphabet`` and a positional bloom whose words hold
+    a few random alignment bits (each set at ~1.5/stride), with a quarter
+    of the grid cells' grams inserted under both salts at one alignment,
+    the top one (bit ``stride - 1``) included, so single-alignment hits
+    are many."""
     rng = np.random.default_rng(seed)
     L = stride * n_rows
-    chunks = rng.integers(97, 100, (B, L), dtype=np.int64).astype(np.uint8)
+    pool = np.frombuffer(alphabet, np.uint8)
+    chunks = pool[rng.integers(0, len(pool), (B, L))]
     lengths = np.full(B, L, np.int32)
     lengths[2] = L // 3
     lengths[4] = 0
@@ -127,6 +130,133 @@ def test_filter_hits_sampled_matches_jax(stride, q, shorts):
         **dict(kw, capacity=n // 2))
     assert int(small[3]) == n
     np.testing.assert_array_equal(small[0].numpy(), idx[: n // 2].numpy())
+
+
+FLAT_CASES = {
+    # stride, q, n_rows, salts, shorts, min_long_len, alphabet
+    # the genome's class: ACGT rows of 4,224 bytes, q 15, stride 6, a salt
+    "genome": (6, 15, 704, SALTS[:1], (), 20, b"ACGT"),
+    "shorts": (7, 10, 48, SALTS, (b"ab", b"c"), 16, b"abc"),
+    "stride32": (32, 16, 40, SALTS, (), 47, b"abcd"),
+    "mll0": (9, 12, 50, SALTS, (b"ca",), 0, b"abc"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_take_extract_matches_jax(case):
+    """The flat take filter's wrapper on CPU tensors (its plain version:
+    no launch is counted) equals ``filter_jax.filter_hits_sampled``, at
+    a capacity that holds every hit and at one that holds half."""
+    stride, q, n_rows, salts, shorts, mll, alphabet = FLAT_CASES[case]
+    chunks, lengths, words = _bloom_case(q * stride, stride, q, B=7,
+                                         n_rows=n_rows, alphabet=alphabet)
+    M = chunks.shape[1] // stride
+    sw = (filter_torch._short_start_words(_t(chunks), _t(lengths), shorts,
+                                          stride, M) if shorts else None)
+    before = filter_cuda.flat_take_extract.launches
+    n = None
+    for capacity in (4096, None):
+        capacity = capacity or max(1, n // 2)
+        kw = dict(q=q, stride=stride, log2_words=13, salts=salts,
+                  capacity=capacity)
+        want = filter_jax.filter_hits_sampled(
+            jnp.asarray(words), jnp.asarray(chunks), jnp.asarray(lengths),
+            jnp.int32(mll), shorts=shorts, **kw)
+        got = filter_cuda.flat_take_extract(
+            _t(words), _t(chunks), sw, torch.tensor(mll, dtype=torch.int32),
+            **kw)
+        assert all(t.dtype == torch.int32 for t in got)
+        _same(want, got)
+        n = n or int(got[3])
+        assert int(got[3]) == n and 0 < n <= 4096
+        assert n > capacity or capacity == 4096
+    assert filter_cuda.flat_take_extract.launches == before
+    if mll == 0:
+        assert not bool((got[1] != 0).any())
+
+
+def test_filter_hits_sampled_calls_flat_take_extract(monkeypatch):
+    """``filter_hits_sampled`` hands the grid work to the wrapper once,
+    with the short-start words only where the plan has shorts."""
+    seen = []
+    real = filter_cuda.flat_take_extract
+
+    def spy(words, chunks, sw, mll, **kw):
+        seen.append((sw is None, kw))
+        return real(words, chunks, sw, mll, **kw)
+
+    monkeypatch.setattr(filter_cuda, "flat_take_extract", spy)
+    chunks, lengths, words = _bloom_case(3, 7, 10)
+    for shorts in ((), (b"ab",)):
+        filter_torch.filter_hits_sampled(
+            _t(words), _t(chunks), _t(lengths),
+            torch.tensor(16, dtype=torch.int32), q=10, stride=7,
+            log2_words=13, salts=SALTS, shorts=shorts, capacity=512)
+    assert [s for s, _ in seen] == [True, False]
+    assert seen[0][1] == dict(q=10, stride=7, log2_words=13, salts=SALTS,
+                              capacity=512)
+
+
+def _flat_inputs():
+    chunks, lengths, words = _bloom_case(5, 8, 9, B=5, n_rows=16)
+    return dict(words=_t(words), chunks=_t(chunks),
+                sw=torch.zeros((5, 16), dtype=torch.int32),
+                mll=torch.tensor(16, dtype=torch.int32))
+
+
+FLAT_BAD = {
+    "q17": (dict(q=17), {}, ValueError),
+    "salts9": (dict(salts=tuple(range(1, 10))), {}, ValueError),
+    "no_salt": (dict(salts=()), {}, ValueError),
+    "stride33": (dict(stride=33), {}, ValueError),
+    "capacity0": (dict(capacity=0), {}, ValueError),
+    "words_int64": ({}, dict(words=lambda t: t.long()), TypeError),
+    "words_short": ({}, dict(words=lambda t: t[:-1]), ValueError),
+    "chunks_1d": ({}, dict(chunks=lambda t: t.reshape(-1)), ValueError),
+    "chunks_int32": ({}, dict(chunks=lambda t: t.to(torch.int32)), TypeError),
+    "chunks_strided": ({}, dict(chunks=lambda t: t[:, ::2]), ValueError),
+    "sw_shape": ({}, dict(sw=lambda t: t[:, :-1]), ValueError),
+    "mll_two": ({}, dict(mll=lambda t: t.repeat(2)), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLAT_BAD))
+def test_flat_take_extract_input_checks(case):
+    """What the kernel does not take raises before a launch: the checks
+    the wrapper makes on a CUDA tensor, run here on CPU tensors."""
+    kw = dict(q=9, stride=8, log2_words=13, salts=SALTS, capacity=64)
+    a = _flat_inputs()
+    filter_cuda.check_flat_inputs(*a.values(), **kw)  # the good inputs pass
+    bad_kw, bad_t, err = FLAT_BAD[case]
+    for name, f in bad_t.items():
+        a[name] = f(a[name])
+    if "chunks" in bad_t and a["chunks"].dim() == 2:
+        # a strided view keeps its rows: the short words' shape follows
+        a["sw"] = torch.zeros((a["chunks"].shape[0],
+                               -(-a["chunks"].shape[1] // 8)),
+                              dtype=torch.int32)
+    with pytest.raises(err):
+        filter_cuda.check_flat_inputs(*a.values(), **dict(kw, **bad_kw))
+
+
+def test_flat_take_extract_build_entry(tmp_path, monkeypatch):
+    """``flat_take_extract`` is built like the other kernels, and its
+    source enters no other kernel's library digest."""
+    import shutil
+
+    from php_aho_corasick_tpu_torch.ops import _build
+
+    name = "flat_take_extract"
+    assert name in _build.KERNELS and (_build.CSRC / f"{name}.cu").exists()
+    with_it = {n: _build.library_path(n).name for n in _build.KERNELS}
+    assert with_it[name].startswith(f"lib{name}-")
+    bare = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, bare)
+    (bare / f"{name}.cu").unlink()
+    monkeypatch.setattr(_build, "CSRC", bare)
+    others = [n for n in _build.KERNELS if n != name]
+    assert {n: _build.library_path(n).name for n in others} == {
+        n: with_it[n] for n in others}
 
 
 class _RefineSpy:

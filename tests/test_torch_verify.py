@@ -266,7 +266,7 @@ def test_verify_records_build_entry(tmp_path, monkeypatch):
     (bare / "verify_records.cu").unlink()
     monkeypatch.setattr(_build, "CSRC", bare)
     others = [n for n in _build.KERNELS if n != "verify_records"]
-    assert len(others) == 6
+    assert len(others) == 7
     assert {n: _build.library_path(n).name for n in others} == {
         n: with_it[n] for n in others}
 
