@@ -116,14 +116,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per-shard record counts equal to a host split of them (the headline
    holds no match);
    (c) ``match_arrays`` sharded through the tile, dfa, k-gram, anchored,
-   rows, take-grouped, headline-compressed and signature-byte cells, each
-   equal to its unsharded records (every grouped-kernel launch of the
-   take-grouped and signature-byte cells held against its plain
-   version), the compressed table held once on the card; (d) ``parallel.dryrun.dryrun_multichip(4, "cuda")``; (e) two
-   processes on the card (``torch.distributed`` with gloo, both ranks on
-   ``cuda:0``, the script run again with ``--worker``) over 16 MiB with
-   needles planted at 1e-5, both equal to the single-process records.  Each kernel's first launch of the phase, at a
-   shard's shape, is held against its plain version;
+   rows, take-flat, take-grouped, headline-compressed and signature-byte
+   cells, each equal to its unsharded records, the compressed table held
+   once on the card; (d) ``parallel.dryrun.dryrun_multichip(4, "cuda")``;
+   (e) two processes on the card (``torch.distributed`` with gloo, both
+   ranks on ``cuda:0``, the script run again with ``--worker``) over 16
+   MiB with needles planted at 1e-5, both equal to the single-process
+   records.  Every launch of (a)'s first call and of the cells of (c)
+   that run a filter kernel or the tile kernel, at a shard's shape, is
+   held against its plain version;
 12. the remaining surface: (a) the headline set built by the native and
    the numpy builder, bit-equal tables, the library under
    ``build/torch_kernels/``; (b) ``utils.serialization``: the 1M
@@ -135,10 +136,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fused kernel) and ``sync``; (d) the command line in subprocesses on the
    card (``scan``, ``build``, ``info``, ``replace``) with the tile probe
    set over 1 MiB of the base documents, equal to the same calls in
-   process; (e) the three examples at their default sizes.  The kernels
-   each part launches are held against their plain versions at its shapes
-   (the tile kernel of (d) in process, the fused kernel of (e), every
-   grouped-kernel launch of the loaded matcher in (b));
+   process; (e) the three examples at their default sizes.  Every launch
+   of the loaded matchers' passes in (b), of (d)'s scan in process and of
+   (e)'s ``bulk_scan`` is held against its plain version;
 13. a fixed slice of the randomized soak (``python -m
    php_aho_corasick_tpu_torch.soak``, ``SOAK_CASES`` cases at
    ``SOAK_SEED`` in a subprocess): random needle sets, documents and
@@ -185,7 +185,6 @@ the flat take filter's, which replace XLA code of its ``filter_jax.py``.
 """
 
 import contextlib
-import functools
 import inspect
 import json
 import random
@@ -194,6 +193,8 @@ import sys
 import time
 
 import numpy as np
+
+from portbench.bounds import bound_of
 
 N_NEEDLES, NEEDLE_LEN = 2048, 16
 ALPHABET = b"abcdef"
@@ -220,12 +221,6 @@ FRESH_PASSES, STREAM_BATCHES = 3, 6
 STREAM_FEED, CARRY_FEED, CARRY_BYTES = 4 << 20, 1 << 20, 8 << 20
 WARMUP_DOC, WARMUP_DOCS = 1 << 20, 16
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# The kernels do 32-bit integer work, one instruction per counted
-# operation.  The H100 SXM runs int32 operations on 64 lanes per SM (half
-# its 128 fp32 lanes; NVIDIA Hopper architecture white paper): 132 SMs x 64
-# lanes x 1.98 GHz boost clock.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def log(*args):
@@ -333,8 +328,11 @@ def parent_bloom_word_vmem(csrc):
 
 
 def compare(got, want, what):
-    """Max abs difference of the kernel's outputs from the plain
-    version's; raises unless they are equal bit for bit."""
+    """Max abs difference of the kernel's outputs (a tensor or a tuple)
+    from the plain version's; raises unless they are equal bit for
+    bit."""
+    if not isinstance(got, (tuple, list)):
+        got, want = [got], [want]
     err = 0
     for i, (a, b) in enumerate(zip(got, want)):
         if a.shape != b.shape:
@@ -357,20 +355,48 @@ def extract_args(cm, dc):
                                  dc.fused_phases(cm))
 
 
-def plain(args, kw):
-    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
-        _fused_extract_torch,
-    )
+def held_calls(fn, *names):
+    """Run ``fn()`` with every hand-kernel launch held against its plain
+    version on the same inputs (``soak.held_to_plain``; any difference
+    raises) and the calls of the kernels ``names`` kept.  Returns
+    ``fn()``'s result and those calls by name, ``[(args, kwargs,
+    output)]``, each kernel launched at least once."""
+    from php_aho_corasick_tpu_torch.ops._build import observed
+    from php_aho_corasick_tpu_torch.soak import held_to_plain
 
-    table, phase_g, sw_g, mll = args
-    n_blocks = (phase_g.shape[1] - 8) // kw["block_r"]
-    return _fused_extract_torch(
-        table, phase_g, sw_g, mll, kw["salts"], kw["log2_rows"], kw["pack"],
-        kw["q"], kw["spc"], kw["mpr"], kw["block_r"], n_blocks,
-        kw["n_grid"], kw["l16"], kw["prefix_on"],
-        prefix_table=kw["prefix_table"], prefix_salts=kw["prefix_salts"],
-        prefix_log2=kw["prefix_log2"],
-    )
+    kept = {name: [] for name in names}
+
+    def keep(kernel, args, kw, out):
+        if kernel.name in kept:
+            kept[kernel.name].append((args, kw, out))
+
+    with held_to_plain() as err, observed(keep):
+        res = fn()
+    assert not any(err.values()), f"differs from its plain version: {err}"
+    for name, calls in kept.items():
+        assert calls, f"{name} was not launched"
+    return res, kept
+
+
+def launch_counts(since=None):
+    """The hand kernels' launches by name, less ``since``'s
+    (``ops/_build.launch_counts``)."""
+    from php_aho_corasick_tpu_torch.ops import _build
+
+    return _build.launch_counts(since)
+
+
+def launched_only(launched, what, least, *names):
+    """Assert that of the hand kernels only ``names`` launched, each at
+    least ``least`` times."""
+    assert all(launched[n] >= least for n in names), (what, launched)
+    assert not any(n for k, n in launched.items() if k not in names), (
+        f"{what} launched other kernels: {launched}")
+
+
+def in_ms(bound):
+    """A ``portbench.bounds.bound_of`` bound as ``(ms, by, bytes, ops)``."""
+    return bound["seconds"] * 1e3, bound["by"], bound["bytes"], bound["ops"]
 
 
 def salt_probes(table, code, salts, log2_rows, pack):
@@ -392,14 +418,6 @@ def salt_probes(table, code, salts, log2_rows, pack):
     return int(probes.sum().item())
 
 
-def bound_of(n_bytes, ops):
-    """The larger of the memory and the operations floor, in ms."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", n_bytes, ops)
-
-
 def hit_bound(words, slots):
     """``bound_of`` the bit test: each slot read and each result written
     once (4 bytes each), and the bloom's words read once, but no more of
@@ -419,7 +437,7 @@ def assert_no_sync(torch, fn):
         torch.cuda.set_sync_debug_mode(0)
 
 
-def bound_ms(args, kw, out):
+def fused_bound(args, kw, out):
     """Least time for the fused filter on these inputs: each input read
     and each output written once over the memory rate, against the
     integer operations this data needs over the int32 rate: the q-gram
@@ -452,7 +470,7 @@ def bound_ms(args, kw, out):
     return bound_of(n_bytes, n * (4 * -(-q // 4) + 6) + 12 * probes)
 
 
-def phase_kernel_random(torch, fse, plain_fn):
+def phase_kernel_random(torch, fse):
     rng = np.random.default_rng(0)
     k, log2_rows, pack, spc, n_blocks = 3, 12, 1, 2, 8
     R_pad = n_blocks * 1024
@@ -471,13 +489,13 @@ def phase_kernel_random(torch, fse, plain_fn):
               prefix_on=False, prefix_table=None, prefix_salts=(),
               prefix_log2=0)
     got = fse(*args, **kw)
-    want = plain_fn(args, kw)
+    want = fse.plain(*args, **kw)
     torch.cuda.synchronize()
     err = compare(got, want, "random tables, shorts, pack=1")
     return int(got[4].sum().item()), err
 
 
-def phase_fused_cases(torch, fse, plain_fn):
+def phase_fused_cases(torch, fse):
     """The fused kernel against its plain version over spc 1-4 x pack
     1/2/4 x q 1/9/16 (prefix on and off, shorts on and off), tables over
     the shared-memory budget; returns ``(cases, max_abs_err)``."""
@@ -510,7 +528,7 @@ def phase_fused_cases(torch, fse, plain_fn):
                   prefix_table=ptab if prefix else None,
                   prefix_salts=(0x7F4A7C15, 0x94D049BB) if prefix else (),
                   prefix_log2=15 if prefix else 0)
-        want = plain_fn(args, kw)
+        want = fse.plain(*args, **kw)
         got = fse(*args, **kw)
         torch.cuda.synchronize()
         err = max(err, compare(got, want, (
@@ -615,9 +633,6 @@ def phase_grouped_random(torch, gte, gtr):
     case's compaction with the prefix bloom off and on (1-3 salts, windows
     of 4-20 bytes, fewer entries than hits).  Returns ``(cases,
     max_abs_err)``."""
-    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
-        _grouped_extract_torch, _grouped_refine_torch,
-    )
     from php_aho_corasick_tpu_torch.ops.filter_torch import (
         blocked_nonzero, to_i32,
     )
@@ -662,12 +677,10 @@ def phase_grouped_random(torch, gte, gtr):
         mll_t = torch.tensor(mll, dtype=torch.int32, device=DEVICE)
         salts = tuple((0x9E3779B9 * (2 * j + 1)) & 0xFFFFFFFF
                       for j in range(k))
-        spc = stride // 4
-        got = gte(words, wc, sw, mll_t, words2, q=q, spc=spc,
-                  log2_words=log2_words, salts=salts, mpr=mpr,
-                  block_r=block_r)
-        want = _grouped_extract_torch(words, wc, sw, mll_t, words2, q, spc,
-                                      log2_words, salts, mpr, block_r)
+        kw = dict(q=q, spc=stride // 4, log2_words=log2_words, salts=salts,
+                  mpr=mpr, block_r=block_r)
+        got = gte(words, wc, sw, mll_t, words2, **kw)
+        want = gte.plain(words, wc, sw, mll_t, words2, **kw)
         torch.cuda.synchronize()
         what = (f"grouped_take_extract stride {stride} q {q} k {k} words2 "
                 f"{dual} shorts {shorts} block_r {block_r} mpr {mpr}")
@@ -677,12 +690,11 @@ def phase_grouped_random(torch, gte, gtr):
         slot, _ = blocked_nonzero(
             ((r_s >= 0) & ((w_s | swo_s) != 0)).reshape(-1), cap)
         pw = ints((1 << plog2) // 32) if plen else None
-        kw = dict(mpr=mpr, block_r=block_r, spc=spc,
+        kw = dict(mpr=mpr, block_r=block_r, spc=stride // 4,
                   prefix_salts=salts[:n_ps], prefix_log2=plog2,
                   prefix_len=plen)
         got = gtr(slot, r_s, w_s, swo_s, wc, pw, **kw)
-        want = _grouped_refine_torch(slot, r_s, w_s, swo_s, wc, pw,
-                                     *kw.values())
+        want = gtr.plain(slot, r_s, w_s, swo_s, wc, pw, **kw)
         torch.cuda.synchronize()
         err = max(err, compare(got, want, f"grouped_take_refine after "
                                           f"{what}, prefix_len {plen}"))
@@ -781,9 +793,7 @@ def phase_verify_random(torch, vr):
     past the array, every slot padding, and capacities under the record
     count.  Returns ``(calls, max_abs_err)``."""
     from php_aho_corasick_tpu_torch.core import TrieBuilder, compile_trie
-    from php_aho_corasick_tpu_torch.ops.filter_torch import (
-        REC2_BITS, _verify_records_torch,
-    )
+    from php_aho_corasick_tpu_torch.ops.filter_torch import REC2_BITS
 
     calls, err = 0, 0
     for seed, (n_alpha, B, L, stride, H, cap) in enumerate(VERIFY_CASES):
@@ -835,7 +845,7 @@ def phase_verify_random(torch, vr):
                     args = (put(table.reshape(-1)), *common, put(grid), fs)
                     k = dict(kw, capacity=capacity, n_hits=n_hits, step=step)
                     got = vr(*args, **k)
-                    want = _verify_records_torch(*args, **k)
+                    want = vr.plain(*args, **k)
                     err = max(err, compare(got, want, (
                         f"verify_records case {seed}, step {step}, "
                         f"{table.dtype}, n_hits {n_hits}, capacity "
@@ -887,29 +897,23 @@ def verify_check(torch, card, what, run):
     capacity and, when it made two records or more, at half their count
     (``n_rec > capacity``: the cut and the count), each held again.
     Returns the largest difference and the times by capacity."""
-    from php_aho_corasick_tpu_torch.ops import filter_cuda
-    from php_aho_corasick_tpu_torch.soak import plain_version
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import verify_records
 
-    _, calls = spy_calls(("verify_records",), run)
+    _, calls = held_calls(run, "verify_records")
     calls = calls["verify_records"]
-    assert calls, f"{what}: verify_records was not launched"
-    err = 0
-    for call in calls:
-        err = max(err, held_to_plain(torch, "verify_records", call,
-                                     f"at the {what} shape"))
     args, kw, out = calls[0]
     n_rec = int(out[2])
     caps = [kw["capacity"]] + ([n_rec // 2] if n_rec >= 2 else [])
-    times = {}
+    err, times = 0, {}
     for cap in caps:
         k = dict(kw, capacity=cap)
-        got = filter_cuda.verify_records(*args, **k)
-        err = max(err, compare(got, plain_version("verify_records", args, k),
+        got = verify_records(*args, **k)
+        err = max(err, compare(got, verify_records.plain(*args, **k),
                                f"verify_records at the {what} shape, "
                                f"capacity {cap}"))
-        k_ms = cuda_ms(lambda: filter_cuda.verify_records(*args, **k), 50)
-        p_ms = cuda_ms(lambda: plain_version("verify_records", args, k), 3)
-        b_ms, b_by, b_bytes, _ = verify_bound(args, k, got)
+        k_ms = cuda_ms(lambda: verify_records(*args, **k), 50)
+        p_ms = cuda_ms(lambda: verify_records.plain(*args, **k), 3)
+        b_ms, b_by, b_bytes, _ = in_ms(verify_bound(args, k, got))
         H = min(k["n_hits"], args[6].shape[0])
         log(f"verify_records at the {what} shape ({len(calls)} launch(es) "
             f"a call, {H} hit slots, step {k.get('step', 1)}, "
@@ -1045,9 +1049,9 @@ def phase_rows_path(torch, base, card, bwv, ptxas, parent=None):
     err = compare([got], [want], "bloom_word_vmem, rows plan, 128 MiB")
     k_ms = cuda_ms(lambda: bwv(table, codes, *kargs), 50)
     p_ms = cuda_ms(lambda: _bank_probe_torch(table, u32(codes), *kargs), 3)
-    b_ms, b_by, b_bytes, b_ops = bound_of(
+    b_ms, b_by, b_bytes, b_ops = in_ms(bound_of(
         codes.numel() * 8 + table.numel() * 4,
-        12 * salt_probes(table, u32(codes), *kargs))
+        12 * salt_probes(table, u32(codes), *kargs)))
     f_ms = cuda_ms(lambda: cm.scan_hits_sampled(
         h.chunks_d, h.lengths_d, max(cm._cap_hits, 256)), 5)
     log(f"bloom_word_vmem at {tuple(codes.shape)} codes: {k_ms:.4f} ms "
@@ -1199,7 +1203,7 @@ def phase_anchored_path(torch, base, card, bh):
     err = compare([hit], [want], "bloom_hit, anchored plan, 32 MiB")
     k_ms = cuda_ms(lambda: bh(words, slots), 50)
     p_ms = cuda_ms(lambda: bloom_hit_take(words, slots), 10)
-    b_ms, b_by, b_bytes, b_ops = hit_bound(words, slots)
+    b_ms, b_by, b_bytes, b_ops = in_ms(hit_bound(words, slots))
     log(f"bloom_hit at {tuple(slots.shape)} slots: {k_ms:.4f} ms (plain "
         f"bloom_hit_take {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
         f"{b_bytes} bytes, {b_ops} ops), {int(hit.sum())} set bits; on "
@@ -1221,76 +1225,24 @@ def phase_anchored_path(torch, base, card, bh):
     }
 
 
-def counts_zeroed(kernels):
-    for k in kernels:
-        k.launches = 0
-
-
-#: the grouped take filter's kernels, in the order of ``kernels`` after
-#: the four of the JAX package's Pallas kernels
-GROUPED = ("grouped_take_extract", "grouped_take_refine")
-#: the order of ``kernels`` and of every list of launch counts
-KERNEL_ORDER = "fused, rows, bloom_hit, tile, extract, refine, verify, flat"
-#: kernels in that order
-N_KERNELS = 8
-
-
-def spy_calls(names, fn):
-    """Run ``fn()`` with the ``ops/filter_cuda`` wrappers ``names`` wrapped
-    so that every call's ``(args, kwargs, output)`` is kept; returns
-    ``fn()``'s result and the calls by name.  The wrappers still count
-    their launches (on the module's name, which the spy holds meanwhile)."""
-    from php_aho_corasick_tpu_torch.ops import filter_cuda
-
-    real = {n: getattr(filter_cuda, n) for n in names}
-    seen = {n: [] for n in names}
-
-    def spy_of(name):
-        @functools.wraps(real[name])
-        def spy(*args, **kw):
-            out = real[name](*args, **kw)
-            seen[name].append((args, kw, out))
-            return out
-
-        spy.launches = real[name].launches
-        return spy
-
-    spies = {n: spy_of(n) for n in names}
-    for n, spy in spies.items():
-        setattr(filter_cuda, n, spy)
-    try:
-        res = fn()
-    finally:
-        for n in names:
-            setattr(filter_cuda, n, real[n])
-            real[n].launches = spies[n].launches
-    return res, seen
-
-
 @contextlib.contextmanager
-def plain_grouped():
-    """The grouped take filter on its kernels' plain versions: the two
-    ``ops/filter_cuda`` wrappers replaced by what they compute on a CPU
-    tensor, run on the card's tensors (the filter before its kernels)."""
-    from php_aho_corasick_tpu_torch.ops import filter_cuda
-    from php_aho_corasick_tpu_torch.soak import plain_version
+def on_plain(*names):
+    """The hand kernels ``names`` run their plain versions on the card's
+    tensors while the context is open (their entries' launch code swapped
+    for the plain version)."""
+    from php_aho_corasick_tpu_torch.ops._build import KERNELS
 
-    real = {n: getattr(filter_cuda, n) for n in GROUPED}
+    def plain(kernel, *args, **kw):
+        return kernel.plain(*args, **kw)
 
-    def plain_of(name):
-        @functools.wraps(real[name])  # plain_version binds its signature
-        def run(*args, **kw):
-            return plain_version(name, args, kw)
-
-        return run
-
-    for n in GROUPED:
-        setattr(filter_cuda, n, plain_of(n))
+    saved = [(KERNELS[name], KERNELS[name].code) for name in names]
+    for kernel, _ in saved:
+        kernel.code = plain
     try:
         yield
     finally:
-        for n in GROUPED:
-            setattr(filter_cuda, n, real[n])
+        for kernel, code in saved:
+            kernel.code = code
 
 
 def device_ops(torch, run):
@@ -1316,9 +1268,9 @@ def device_ops(torch, run):
 
 def bound_args(name, args, kw):
     """A wrapper call's arguments by parameter name."""
-    from php_aho_corasick_tpu_torch.ops import filter_cuda
+    from php_aho_corasick_tpu_torch.ops._build import KERNELS
 
-    b = inspect.signature(getattr(filter_cuda, name)).bind(*args, **kw)
+    b = inspect.signature(KERNELS[name]).bind(*args, **kw)
     b.apply_defaults()
     return b.arguments
 
@@ -1342,7 +1294,7 @@ def extract_bound(args, kw, out):
     n_bytes = (wc.numel() * 4 + (sw.numel() * 4 if sw is not None else 0)
                + 4 + 4 * probes + sum(t.numel() * 4 for t in out))
     ops = n_grid * (4 * ((a["q"] - 1) // 4 + 1) + 6) + 6 * probes
-    return bound_of(n_bytes, ops) + (28 * probes,)
+    return bound_of(n_bytes, ops), 28 * probes
 
 
 def refine_bound(args, kw, out):
@@ -1365,8 +1317,7 @@ def refine_bound(args, kw, out):
     words = (l16 + 3) // 4 + 1
     n_bytes = slot.numel() * 16 + live * 12 + single * 4 * (words + k)
     ops = slot.numel() * 12 + single * (3 * l16 + 6 * k)
-    return bound_of(n_bytes, ops) + (28 * (3 * live + single * k)
-                                     + 32 * single,)
+    return bound_of(n_bytes, ops), 28 * (3 * live + single * k) + 32 * single
 
 
 def grouped_check(torch, card, what, run):
@@ -1377,43 +1328,42 @@ def grouped_check(torch, card, what, run):
     device ms a call (CUDA events, host queued ahead) on the kernels and
     on their plain versions in turns (plain, kernels, kernels, plain), and
     its device operations and their busy ms a call by the profiler.
-    Returns the largest difference and each kernel's times."""
-    from php_aho_corasick_tpu_torch.ops import filter_cuda
-    from php_aho_corasick_tpu_torch.soak import plain_version
+    Returns each kernel's times."""
+    from php_aho_corasick_tpu_torch.ops._build import KERNELS
 
-    _, calls = spy_calls(GROUPED, run)
-    err, times = 0, {}
-    for name, bound in zip(GROUPED, (extract_bound, refine_bound)):
-        assert calls[name], f"{what}: {name} was not launched"
-        for call in calls[name]:
-            err = max(err, held_to_plain(torch, name, call,
-                                         f"at the {what} shape"))
+    bounds = {"grouped_take_extract": extract_bound,
+              "grouped_take_refine": refine_bound}
+    _, calls = held_calls(run, *bounds)
+    times = {}
+    for name, bound in bounds.items():
         args, kw, out = calls[name][0]
-        fn = getattr(filter_cuda, name)
-        k_ms = cuda_ms(lambda: fn(*args, **kw), 50)
-        p_ms = cuda_ms(lambda: plain_version(name, args, kw), 5)
-        b_ms, b_by, b_bytes, b_ops, sectors = bound(args, kw, out)
+        kernel = KERNELS[name]
+        k_ms = cuda_ms(lambda: kernel(*args, **kw), 50)
+        p_ms = cuda_ms(lambda: kernel.plain(*args, **kw), 5)
+        b, sectors = bound(args, kw, out)
+        b_ms, b_by, b_bytes, b_ops = in_ms(b)
         shapes = [tuple(t.shape) for t in args if hasattr(t, "shape")]
         log(f"{name} at the {what} shape ({len(calls[name])} call(s) a "
             f"filter call, inputs {shapes}): bit-equal to its plain "
             f"version; {k_ms:.4f} ms (plain {p_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms by {b_by}: {b_bytes} bytes, {b_ops} ops; the "
             f"random gathers' 32-byte sectors add {sectors} bytes, "
-            f"{sectors / HBM_BYTES_PER_S * 1e3:.6f} ms); on {card}")
+            f"{in_ms(bound_of(sectors, 0))[0]:.6f} ms); on {card}")
         times[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by}
     turns = []
     for who in ("plain", "kernels", "kernels", "plain"):
-        with plain_grouped() if who == "plain" else contextlib.nullcontext():
+        with (on_plain(*bounds) if who == "plain"
+              else contextlib.nullcontext()):
             turns.append(f"{who} {cuda_ms(run, 5):.3f}")
     n_k, busy_k = device_ops(torch, run)
-    with plain_grouped():
+    with on_plain(*bounds):
         n_p, busy_p = device_ops(torch, run)
     log(f"grouped take filter at the {what} shape, device ms a call in "
         f"turns: {', '.join(turns)}; device operations a call: kernels "
         f"{n_k} ({busy_k:.3f} ms busy), plain {n_p} ({busy_p:.3f} ms "
         f"busy); on {card}")
-    return err, times
+    return times
 
 
 def flat_times(torch, card, what, call):
@@ -1422,15 +1372,14 @@ def flat_times(torch, card, what, call):
     (``portbench.bounds.sampled_filter_work``: the corpus once, 4 bytes
     and 6 operations a probe; the metric ``take_filter_roofline_pct``'s
     floor), and what the probes' 32-byte sectors would add to it."""
-    from php_aho_corasick_tpu_torch.ops import filter_cuda
-    from php_aho_corasick_tpu_torch.soak import plain_version
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import flat_take_extract
     from portbench.bounds import sampled_filter_work
 
     name = "flat_take_extract"
     args, kw, out = call
     a = bound_args(name, args, kw)
-    k_ms = cuda_ms(lambda: filter_cuda.flat_take_extract(*args, **kw), 20)
-    p_ms = cuda_ms(lambda: plain_version(name, args, kw), 3)
+    k_ms = cuda_ms(lambda: flat_take_extract(*args, **kw), 20)
+    p_ms = cuda_ms(lambda: flat_take_extract.plain(*args, **kw), 3)
     rows, row_len = a["chunks"].shape
     b = sampled_filter_work(rows, row_len, a["q"], a["stride"],
                             a["words"].numel() * 4, 6)
@@ -1443,7 +1392,7 @@ def flat_times(torch, card, what, call):
         f"{b['seconds'] * 1e3:.6f} ms by {b['by']}: {b['bytes']} bytes, "
         f"{b['ops']} ops, {100 * b['seconds'] * 1e3 / k_ms:.2f}% of it; the "
         f"first probes' 32-byte sectors add {sectors} bytes, "
-        f"{sectors / HBM_BYTES_PER_S * 1e3:.6f} ms); on {card}")
+        f"{in_ms(bound_of(sectors, 0))[0]:.6f} ms); on {card}")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b["seconds"] * 1e3,
             "bound_by": b["by"]}
 
@@ -1451,12 +1400,11 @@ def flat_times(torch, card, what, call):
 def flat_check(torch, card, what, run):
     """The flat take filter of one cell (``run()``: one filter call on its
     handle): its one launch held against its plain version, then
-    :func:`flat_times`.  Returns the largest difference and the times."""
+    :func:`flat_times`.  Returns the times."""
     name = "flat_take_extract"
-    _, calls = spy_calls((name,), run)
+    _, calls = held_calls(run, name)
     assert len(calls[name]) == 1, f"{what}: {len(calls[name])} launches"
-    err = held_to_plain(torch, name, calls[name][0], f"at the {what} shape")
-    return err, flat_times(torch, card, what, calls[name][0])
+    return flat_times(torch, card, what, calls[name][0])
 
 
 def flat_genome_check(torch, card):
@@ -1481,27 +1429,26 @@ def flat_genome_check(torch, card):
     kw = dict(q=15, stride=6, log2_words=GENOME_LOG2_WORDS,
               salts=(0x85EBCA6B,), capacity=1 << 18)
     before = flat_take_extract.launches
-    out = flat_take_extract(words, chunks, None, mll, **kw)
+    out, calls = held_calls(
+        lambda: flat_take_extract(words, chunks, None, mll, **kw),
+        "flat_take_extract")
     assert flat_take_extract.launches == before + 1
-    call = ((words, chunks, None, mll), kw, out)
-    err = held_to_plain(torch, "flat_take_extract", call,
-                        "at a genome chromosome's shape")
+    call, = calls["flat_take_extract"]
     assert 0 < int(out[3]) <= kw["capacity"], int(out[3])
-    return err, flat_times(torch, card, "genome chromosome", call)
+    return flat_times(torch, card, "genome chromosome", call)
 
 
-def phase_take_path(torch, base, card, head, kernels):
+def phase_take_path(torch, base, card, head):
     """The sampled take filters: take-flat at 16,384 needles (the flat
     take filter's kernel; the records verify on its int32 dense table),
     take-grouped on the headline's handle (the grouped filter's two
     kernels and the records verify on the int16 dense table), force-take;
     the flat kernel at a genome chromosome's shape.  ``head`` is the
     headline's ``(needles, handle, warm result)``.  Returns the hand
-    kernels' launches of both timed batches, the grouped kernels' largest
-    difference from their plain versions and their times at its shapes
-    (:func:`grouped_check`), the records verify's (:func:`verify_check`)
-    by shape, and the flat kernel's largest difference and times by shape
-    (:func:`flat_check`)."""
+    kernels' launches of both timed batches, the grouped kernels' times
+    at its shapes (:func:`grouped_check`), the records verify's largest
+    difference and times by shape (:func:`verify_check`), and the flat
+    kernel's times by shape (:func:`flat_check`)."""
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
 
     docs = [row.tobytes() for row in base] * HEADLINE_REPS
@@ -1540,17 +1487,17 @@ def phase_take_path(torch, base, card, head, kernels):
     warm = m.match_arrays(h)
     m.match_arrays_many([h] * BATCH)  # warm the batch structure
     fallbacks = m.stats.records_fallbacks
-    counts_zeroed(kernels)
+    before = launch_counts()
     ms, res, wall = timed_passes(
         torch, lambda: m.match_arrays_many([h] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
-    flat_launched = launched_of(kernels)
+    flat_launched = launch_counts(before)
     assert m.stats.records_fallbacks == fallbacks, "batch fell back"
-    assert not any(flat_launched[:6]), (
-        f"take-flat launched other filter kernels: {flat_launched}")
+    launched_only(flat_launched, "take-flat", BATCH, "flat_take_extract",
+                  "verify_records")
     # the flat kernel once a chain, as the records verify
-    assert flat_launched[7] == flat_launched[6] >= BATCH, (
-        f"take-flat: {flat_launched}")
+    assert (flat_launched["flat_take_extract"]
+            == flat_launched["verify_records"]), flat_launched
     assert not cm._force_take and cm.take_branch(L) == "flat"
     for r in res:
         for key in r:
@@ -1564,7 +1511,7 @@ def phase_take_path(torch, base, card, head, kernels):
         f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
         f"({wall:.3f} ms wall), {total / ms / 1e6:.2f} GB/s, "
         f"{res[0]['doc'].shape[0]} matches/pass, hand kernel launches "
-        f"({KERNEL_ORDER}) {flat_launched}, no records fallback, no host "
+        f"{flat_launched}, no records fallback, no host "
         f"verify; device time of the flat "
         f"filter {f_ms:.3f} ms, of filter + record verify {c_ms:.3f} ms "
         f"(capacity {max(cm._cap_hits, 256)}); on {card}")
@@ -1611,14 +1558,13 @@ def phase_take_path(torch, base, card, head, kernels):
         assert np.array_equal(warm[key], warm_h[key]), f"grouped: {key}"
     mg.match_arrays_many([hh] * BATCH)
     fallbacks = mg.stats.records_fallbacks
-    counts_zeroed(kernels)
+    before = launch_counts()
     ms, res, wall = timed_passes(
         torch, lambda: mg.match_arrays_many([hh] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
-    launched = launched_of(kernels)
-    assert min(launched[4:7]) >= BATCH, f"grouped kernels, verify: {launched}"
-    assert not any(launched[:4]) and not launched[7], (
-        f"take-grouped launched others: {launched}")
+    launched = launch_counts(before)
+    launched_only(launched, "take-grouped", BATCH, "grouped_take_extract",
+                  "grouped_take_refine", "verify_records")
     assert mg.stats.records_fallbacks == fallbacks, "batch fell back"
     assert cg.take_branch(L) == "grouped"
     for r in res:
@@ -1630,7 +1576,7 @@ def phase_take_path(torch, base, card, head, kernels):
     log(f"take-grouped: match_arrays_many([headline handle] * {BATCH}) "
         f"with bloom_impl='take': {ms:.3f} ms/pass by CUDA events "
         f"({wall:.3f} ms wall), {res[0]['doc'].shape[0]} matches/pass "
-        f"(equal to the fused route), hand kernel launches ({KERNEL_ORDER}) "
+        f"(equal to the fused route), hand kernel launches "
         f"{launched}, group size {cg.take_group_block_r()}, slot capacity "
         f"{cg._cap_coarse}; device time of the grouped filter {f_ms:.3f} "
         f"ms; on {card}")
@@ -1642,7 +1588,7 @@ def phase_take_path(torch, base, card, head, kernels):
         "take-grouped dispatch")
     # both kernels at the shapes this path gives them, against their plain
     # versions; the filter a call on the kernels and on the plain versions
-    err, times = grouped_check(
+    times = grouped_check(
         torch, card, "take-grouped",
         lambda: cg.scan_hits_sampled(hh.chunks_d, hh.lengths_d, cap))
     vr_shapes["take-grouped"] = verify_check(
@@ -1675,9 +1621,9 @@ def phase_take_path(torch, base, card, head, kernels):
         f"second call on the same matcher equal, {ms:.3f} ms by CUDA events "
         f"({wall:.3f} ms wall); on {card}")
     del mf, cf
-    launched = [a + b for a, b in zip(flat_launched, launched)]
+    launched = {k: n + flat_launched[k] for k, n in launched.items()}
     flat["genome chromosome"] = flat_genome_check(torch, card)
-    return launched, err, times, vr_shapes, flat
+    return launched, times, vr_shapes, flat
 
 
 def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
@@ -1699,7 +1645,7 @@ def tile_args(torch, rng, S, U, B, L, dtype, with_lengths):
     return args, c(lengths) if with_lengths else None
 
 
-def phase_tile_random(torch, sst, plain_fn):
+def phase_tile_random(torch, sst):
     """The tile kernel against its plain version on random tables."""
     rng = np.random.default_rng(1)
     err = 0
@@ -1713,7 +1659,7 @@ def phase_tile_random(torch, sst, plain_fn):
     for S, U, B, L, dtype, with_len in cases:
         args, lt = tile_args(torch, rng, S, U, B, L, dtype, with_len)
         got = sst(*args, lengths=lt)
-        want = plain_fn(*args, lt)
+        want = sst.plain(*args, lt)
         torch.cuda.synchronize()
         err = max(err, compare(got, want, f"tile S={S} C={U + 1} [{B}, {L}] "
                                           f"{np.dtype(dtype).name}"))
@@ -1732,7 +1678,7 @@ def ac_tables(torch, pats):
             c(auto.byte_class.astype(np.int32)), c(auto.used_bytes)), auto
 
 
-def phase_tile_sync(torch, sst, plain_fn):
+def phase_tile_sync(torch, sst):
     """The segmented walk (``sync_len`` = longest pattern) against the
     plain walk on Aho-Corasick tables: the probe set, a set at S*C near
     4096 with a 380-byte pattern, nonzero initial states, ragged and empty
@@ -1772,7 +1718,7 @@ def phase_tile_sync(torch, sst, plain_fn):
                 c(rng.integers(0, auto.n_states, B).astype(np.int32)),
                 auto.n_classes)
         got = sst(*args, lengths=c(lengths), sync_len=auto.max_len)
-        want = plain_fn(*args, c(lengths))
+        want = sst.plain(*args, c(lengths))
         torch.cuda.synchronize()
         err = max(err, compare(got, want, (
             f"tile sync_len={auto.max_len} {name} S*C="
@@ -1792,7 +1738,7 @@ def ptxas_lines(report, name):
     return "; ".join(f"{n}x {ln}" for ln, n in sorted(lines.items()))
 
 
-def tile_bound_ms(table, chunks, n_classes):
+def tile_bound(table, chunks, n_classes):
     """Least time for the tile scan of ``chunks``: the bytes read and the
     int32 states written once (plus table, class map, init, lengths and
     carry), against 3 operations per byte (class lookup, multiply-add,
@@ -1832,7 +1778,7 @@ TEST1_EXPECT = [
 ]
 
 
-def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
+def phase_tile_path(torch, base, card, sst, ptxas):
     """The tile path at 32 MiB: route, timed passes, kernel against its
     bound, where the pass time goes, and the records against the host
     walk, the dense engine, the default capacity and ``match_many``."""
@@ -1894,7 +1840,7 @@ def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
             h.chunks_d, init, auto.n_classes)
     sync = auto.max_len
     got = sst(*args, lengths=h.lengths_d, sync_len=sync)
-    want = plain_fn(*args, h.lengths_d)
+    want = sst.plain(*args, h.lengths_d)
     torch.cuda.synchronize()
     err = compare(got, want, "tile kernel, probe table, 32 MiB, sync_len")
     err = max(err, compare(sst(*args, lengths=h.lengths_d), want,
@@ -1902,10 +1848,10 @@ def phase_tile_path(torch, base, card, sst, plain_fn, ptxas):
     k_ms = cuda_ms(lambda: sst(*args, lengths=h.lengths_d, sync_len=sync),
                    20)
     w_ms = cuda_ms(lambda: sst(*args, lengths=h.lengths_d), 20)
-    p_ms = cuda_ms(lambda: plain_fn(*args, h.lengths_d), 3)
+    p_ms = cuda_ms(lambda: sst.plain(*args, h.lengths_d), 3)
     shape = tile_launch_shape(dev["table_flat"].numel(), B, L, sync)
-    b_ms, b_by, b_bytes, b_ops = tile_bound_ms(dev["table_flat"], h.chunks_d,
-                                              auto.n_classes)
+    b_ms, b_by, b_bytes, b_ops = in_ms(tile_bound(
+        dev["table_flat"], h.chunks_d, auto.n_classes))
     states = got[0]
     c_ms = cuda_ms(lambda: compact_final_states(
         states, h.lengths_d, h.emit_from_d, dev["final_start"],
@@ -2051,11 +1997,7 @@ def host_walk_segments(auto, docs, seg=4096):
     return arr[:, order]
 
 
-def launched_of(kernels):
-    return [k.launches for k in kernels]
-
-
-def phase_signature_path(torch, card, kernels):
+def phase_signature_path(torch, card):
     """Phase 9a and 9c: the 1M-needle byte signature set, whose dense
     table would exceed ``dense_table_max_bytes``, at the default config:
     the native builder's compressed table, the sampled cascade over 64 MiB
@@ -2065,9 +2007,8 @@ def phase_signature_path(torch, card, kernels):
     their plain versions at the shapes the path gives them
     (:func:`grouped_check`); then ``engine="dfa"`` (the compressed walk)
     over those 8 MiB, equal.  Returns the hand kernels' launches of the
-    timed batch, the grouped kernels' largest difference from their plain
-    versions and their times, the matcher with its documents and records,
-    and the build seconds."""
+    timed batch, the grouped kernels' times, the matcher with its
+    documents and records, and the build seconds."""
     import dataclasses
 
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig, native
@@ -2121,11 +2062,11 @@ def phase_signature_path(torch, card, kernels):
     m.match_arrays_many([h] * BATCH)  # warm the batch structure
     fallbacks = m.stats.records_fallbacks
     torch.cuda.reset_peak_memory_stats()
-    counts_zeroed(kernels)
+    before = launch_counts()
     ms, res, wall = timed_passes(
         torch, lambda: m.match_arrays_many([h] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
-    launched = launched_of(kernels)
+    launched = launch_counts(before)
     peak = torch.cuda.max_memory_allocated()
     assert m.stats.records_fallbacks == fallbacks, "batch fell back"
     for r in res:
@@ -2145,14 +2086,14 @@ def phase_signature_path(torch, card, kernels):
         f"{total / 2**20:.0f} MiB: {ms:.3f} ms/pass by CUDA events "
         f"({wall:.3f} ms wall), {total / ms / 1e6:.2f} GB/s; "
         f"{len(planted)}/{len(planted)} planted needles found, {n_rec} "
-        f"matches/pass; hand kernel launches ({KERNEL_ORDER}) {launched}; "
+        f"matches/pass; hand kernel launches {launched}; "
         f"device time of the filter "
         f"{f_ms:.3f} ms, of filter + record verify {c_ms:.3f} ms (capacity "
         f"{cap_a}); peak device memory {peak} bytes; on {card}")
     trace_breakdown(torch, lambda n: m.match_arrays_many([h] * n), card,
                     passes=1)
     # the grouped filter's kernels at the shapes this path gives them
-    err, times = grouped_check(
+    times = grouped_check(
         torch, card, "signature-byte",
         lambda: cm.scan_hits_sampled(h.chunks_d, h.lengths_d, cap_a))
     # the batch's halves on the host clock: the dispatch of every launch,
@@ -2191,9 +2132,9 @@ def phase_signature_path(torch, card, kernels):
     h8 = m.device_corpus(docs[:n_slice])
     m.config = dataclasses.replace(cfg, engine="dfa")
     assert m._pick_engine(h8.total_bytes) == "dfa"
-    counts_zeroed(kernels)
+    before = launch_counts()
     d_ms, rdfa, d_wall = timed_passes(torch, lambda: m.match_arrays(h8), 1)
-    d_launched = launched_of(kernels)
+    d_launched = launch_counts(before)
     m.config = cfg
     want = {k: res[0][k][sel] for k in res[0]}
     for key in want:
@@ -2204,11 +2145,12 @@ def phase_signature_path(torch, card, kernels):
         f"{h8.total_bytes / d_ms / 1e6:.3f} GB/s, rows "
         f"{tuple(h8.chunks_d.shape)}, hand kernel launches {d_launched}; on "
         f"{card}")
-    assert min(launched[4:6]) >= BATCH, f"grouped kernels: {launched}"
-    return launched, err, times, (m, docs, res[0], rdfa, n_slice), build_s
+    assert min(launched["grouped_take_extract"],
+               launched["grouped_take_refine"]) >= BATCH, launched
+    return launched, times, (m, docs, res[0], rdfa, n_slice), build_s
 
 
-def phase_compressed_path(torch, card, kernels, head):
+def phase_compressed_path(torch, card, head):
     """Phase 9b and 9d: the headline set with ``table_format="compressed"``
     on phase 4's planted 64 MiB handle (the bank-bloom records chain with
     the compressed walk), equal to the dense matcher's records and timed;
@@ -2233,12 +2175,12 @@ def phase_compressed_path(torch, card, kernels, head):
         assert np.array_equal(warm[key], rd[key]), f"compressed: {key}"
     mc.match_arrays_many([hd] * BATCH)
     fallbacks = mc.stats.records_fallbacks
-    counts_zeroed(kernels)
+    before = launch_counts()
     ms, res, wall = timed_passes(
         torch, lambda: mc.match_arrays_many([hd] * BATCH), 1)
     ms, wall = ms / BATCH, wall / BATCH
-    launched = launched_of(kernels)
-    assert launched[0] >= BATCH, f"fused kernel launched {launched[0]} times"
+    launched = launch_counts(before)
+    assert launched["fused_sampled_extract"] >= BATCH, launched
     assert mc.stats.records_fallbacks == fallbacks, "batch fell back"
     for r in res:
         for key in r:
@@ -2253,9 +2195,12 @@ def phase_compressed_path(torch, card, kernels, head):
     trace_breakdown(torch, lambda n: mc.match_arrays_many([hd] * n), card,
                     passes=1)
     # the fused kernel at this handle's shape, against its plain version
-    fse = kernels[0]
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        fused_sampled_extract as fse,
+    )
+
     args, kw = extract_args(cc, hd)
-    got, want = fse(*args, **kw), plain(args, kw)
+    got, want = fse(*args, **kw), fse.plain(*args, **kw)
     torch.cuda.synchronize()
     err = compare(got, want, "fused, headline-compressed, planted 64 MiB")
     log(f"fused_sampled_extract at the planted handle's shape (n_grid "
@@ -2289,7 +2234,7 @@ def phase_compressed_path(torch, card, kernels, head):
     return launched, err
 
 
-def phase_kgram_path(torch, card, kernels, tile_cell):
+def phase_kgram_path(torch, card, tile_cell):
     """Phase 9e: ``engine="kgram"`` on phase 5's 32 MiB tile handle (184
     states x 7 classes: k = 4 under the 256 MiB budget), timed, equal to
     the tile and the dense engines on all 32 MiB.  Returns the hand
@@ -2304,10 +2249,10 @@ def phase_kgram_path(torch, card, kernels, tile_cell):
     assert km.k == 4, km.k
     assert mk._pick_engine(h.total_bytes) == "kgram"
     warm = mk.match_arrays(h)
-    counts_zeroed(kernels)
+    before = launch_counts()
     ms, res, wall = timed_passes(torch, lambda: mk.match_arrays(h),
                                  KGRAM_PASSES)
-    launched = launched_of(kernels)
+    launched = launch_counts(before)
     for want, what in ((res_tile, "tile"), (res_dfa, "dense")):
         for key in want:
             assert np.array_equal(res[key], want[key]), f"kgram/{what}: {key}"
@@ -2374,7 +2319,7 @@ def rec_rows(recs):
                     np.int64).reshape(-1, 2)
 
 
-def phase_serving_path(torch, card, kernels, head, tile_cell, base):
+def phase_serving_path(torch, card, head, tile_cell, base):
     """Phase 10: the serving and streaming surface.  (a) the fresh-corpus
     pipeline: ``match_arrays`` over the headline's 128 MiB as 16,384 fresh
     8 KiB documents (8 slices of 16 MiB), beside the same call with the
@@ -2403,7 +2348,7 @@ def phase_serving_path(torch, card, kernels, head, tile_cell, base):
     docs = [row.tobytes() for row in base] * HEADLINE_REPS
     total = sum(map(len, docs))
     dens, planted = planted_docs(needles, base, int(DENSITY * 1e9))
-    counts_zeroed(kernels)
+    before = launch_counts()
 
     # (a) the fresh-corpus pipeline, off, and the resident handle
     def fresh():
@@ -2606,16 +2551,18 @@ def phase_serving_path(torch, card, kernels, head, tile_cell, base):
         f"{WARMUP_DOC >> 20} MiB: {ms:.3f} ms by CUDA events ({wall:.3f} ms "
         f"host clock), engine {m.stats.last_engine}, records equal to (c)'s; "
         f"on {card}")
-    launched = launched_of(kernels)
-    assert launched[0] > 0, f"fused kernel launched {launched[0]} times"
-    log(f"phase 10 hand kernel launches ({KERNEL_ORDER}): "
-        f"{launched}")
+    launched = launch_counts(before)
+    assert launched["fused_sampled_extract"] > 0, launched
+    log(f"phase 10 hand kernel launches: {launched}")
 
     # the fused kernel at a fresh slice's shape, against its plain version
-    fse = kernels[0]
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        fused_sampled_extract as fse,
+    )
+
     hs = m.device_corpus(docs[: cfg.fresh_slice_bytes // DOC_BYTES])
     args, kw = extract_args(cm, hs)
-    got, want = fse(*args, **kw), plain(args, kw)
+    got, want = fse(*args, **kw), fse.plain(*args, **kw)
     torch.cuda.synchronize()
     err = compare(got, want, "fused, a fresh slice")
     log(f"fused_sampled_extract at a fresh slice's shape (rows "
@@ -2625,50 +2572,6 @@ def phase_serving_path(torch, card, kernels, head, tile_cell, base):
 
 SHARDS = 4  # phase 11: shards of the one card
 TWO_PROC_REPS, TWO_PROC_SHARDS = 8, 2  # 16 MiB of planted docs; shards a rank
-
-
-def spy_first(module, name, fn, also=()):
-    """Run ``fn()`` with the kernel wrapper ``module.name`` wrapped so that
-    its first call is kept: returns ``fn()``'s result and that call's
-    ``(args, kwargs, output)``.  The wrapper still counts its launches.
-    ``also``: modules that imported the wrapper by name, wrapped too."""
-    real, seen = getattr(module, name), []
-
-    def spy(*args, **kw):
-        out = real(*args, **kw)
-        if not seen:
-            seen.append((args, kw, out))
-        return out
-
-    # the wrappers count their launches on the module's name
-    spy.launches = real.launches
-    if hasattr(real, "segmented_launches"):
-        spy.segmented_launches = real.segmented_launches
-    for mod in (module, *also):
-        setattr(mod, name, spy)
-    try:
-        res = fn()
-    finally:
-        for mod in (module, *also):
-            setattr(mod, name, real)
-        real.launches = spy.launches
-        if hasattr(real, "segmented_launches"):
-            real.segmented_launches = spy.segmented_launches
-    assert seen, f"{name} was not launched"
-    return res, seen[0]
-
-
-def held_to_plain(torch, name, call, where="at a shard's shape"):
-    """A captured kernel call (``spy_first``) against its plain version on
-    the same inputs: the largest difference (0; else raises)."""
-    from php_aho_corasick_tpu_torch.soak import plain_version
-
-    args, kw, got = call
-    want = plain_version(name, args, kw)
-    if not isinstance(got, tuple):
-        got, want = [got], [want]
-    torch.cuda.synchronize()
-    return compare(got, want, f"{name} {where}")
 
 
 def shard_split(packed, res, n_shards):
@@ -2769,8 +2672,7 @@ def phase_two_processes(torch, card, m):
         f"single-process result; on {card}")
 
 
-def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
-                     base):
+def phase_shard_path(torch, card, head, planted, tile_cell, sig, base):
     """Phase 11: the data mesh, ``SHARDS`` shards of the one card.  (a)
     the headline's 128 MiB through ``device_corpus(shard=True)`` and
     ``match_arrays_many([handle] * 12)``: records equal to the unsharded
@@ -2782,37 +2684,38 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
     anchored, rows, take-flat (the rows set on the flat take filter),
     take-grouped, headline-compressed and signature-byte cells, each equal to its unsharded records, the compressed table held
     once on the card; (d) ``dryrun_multichip(SHARDS, "cuda")``; (e) two
-    processes on the card over 16 MiB of planted documents.  Each kernel's first launch of the phase, at a
-    shard's shape, is held against its plain version.  Returns the hand
-    kernels' launches of the phase and their largest difference."""
+    processes on the card over 16 MiB of planted documents.  Every launch
+    of (a)'s call and of the cells of (c) that name a kernel, at a shard's
+    shape, is held against its plain version.  Returns the hand kernels'
+    launches of the phase."""
     import dataclasses
 
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
-    from php_aho_corasick_tpu_torch.ops import filter_cuda, scan_cuda
+    from php_aho_corasick_tpu_torch.ops.filter_cuda import (
+        fused_sampled_extract as fse,
+    )
     from php_aho_corasick_tpu_torch.parallel.dryrun import dryrun_multichip
     from php_aho_corasick_tpu_torch.parallel.mesh import local_shards
 
     needles, m, h, warm = head
     hd, rd = planted
     cm = m.cascade_model
-    err = 0
-    counts_zeroed(kernels)
+    launches0 = launch_counts()
     with local_shards(SHARDS):
         # (a) the headline, sharded
         docs = [row.tobytes() for row in base] * HEADLINE_REPS
         hs = m.device_corpus(docs, shard=True)
         assert len(hs.mesh) == SHARDS and len(hs.chunks_d) == SHARDS
         assert all(c.device == h.chunks_d.device for c in hs.chunks_d)
-        res, call = spy_first(filter_cuda, "fused_sampled_extract",
-                              lambda: m.match_arrays(hs))
+        res, calls = held_calls(lambda: m.match_arrays(hs),
+                                "fused_sampled_extract")
         same_arrays(res, warm, "sharded headline")
-        err = max(err, held_to_plain(torch, "fused_sampled_extract", call))
+        call = calls["fused_sampled_extract"][0]
         log(f"phase 11a: headline sharded over {SHARDS} shards of "
             f"{hs.mesh.home}: rows {[tuple(c.shape) for c in hs.chunks_d]}; "
             f"fused_sampled_extract at a shard's phases "
             f"{tuple(call[0][1].shape)}: bit-equal to its plain version")
         m.match_arrays_many([hs] * BATCH)  # warm the batch structure
-        fse = kernels[0]
         turns = []
         for who, hh in (("sharded", hs), ("unsharded", h)) * 2:
             n0 = fse.launches
@@ -2863,43 +2766,30 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
             f"equal the host split of the records")
 
         # (c) every engine, sharded, against its unsharded records
-        def cell(name, mm, hh, want, spy=None):
+        def cell(name, mm, hh, want, *held):
             t0 = time.perf_counter()
-            if spy is None:
-                got = mm.match_arrays(hh)
-            elif spy[1] == GROUPED:
-                # every launch of the grouped kernels, a call a shard
-                got, calls = spy_calls(GROUPED, lambda: mm.match_arrays(hh))
-                for n in GROUPED:
-                    assert len(calls[n]) >= len(hh.mesh), (n, len(calls[n]))
-                    for call in calls[n]:
-                        cell.err = max(cell.err,
-                                       held_to_plain(torch, n, call))
-            else:
-                got, call = spy_first(spy[0], spy[1],
-                                      lambda: mm.match_arrays(hh))
-                cell.err = max(cell.err, held_to_plain(torch, spy[1], call))
+            # every launch held, the kernels ``held`` at least once a shard
+            got, calls = held_calls(lambda: mm.match_arrays(hh), *held)
+            for n, c in calls.items():
+                assert len(c) >= len(hh.mesh), (n, len(c))
             wall = (time.perf_counter() - t0) * 1e3
             same_arrays(got, want, f"sharded {name}")
-            held = ("both grouped kernels (every launch)"
-                    if spy and spy[1] == GROUPED else spy and spy[1])
             log(f"phase 11c: {name} sharded "
                 f"({mm._pick_engine(hh.total_bytes)}, "
                 f"{hh.total_bytes / 2**20:.0f} MiB, {len(hh.mesh)} shards): "
                 f"{got['doc'].shape[0]} records equal to unsharded; "
                 f"{wall:.1f} ms host clock"
-                + (f"; {held} at a shard's shape bit-equal to plain"
-                   if spy else ""))
+                + (f"; {', '.join(held)} (every launch) at a shard's shape "
+                   f"bit-equal to plain" if held else ""))
             return got
 
-        cell.err = 0
         specs, th, res_tile, res_dfa = tile_cell
         tdocs = [row.tobytes() for row in base] * TILE_REPS
         mt = Matcher(specs, ScanConfig(backend="device",
                                        match_capacity=TILE_CAPACITY),
                      device=DEVICE)
         cell("tile", mt, mt.device_corpus(tdocs, shard=True), res_tile,
-             (scan_cuda, "scan_states_tile"))
+             "scan_states_tile")
         n8 = (8 << 20) // DOC_BYTES
         md = Matcher(specs, ScanConfig(backend="device", engine="dfa",
                                        match_capacity=TILE_CAPACITY),
@@ -2926,21 +2816,20 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
             want = mm.match_arrays(mm.device_corpus(cdocs, shard=False))
             if name == "take-flat":
                 assert mm.cascade_model.take_branch(4096) == "flat"
-            cell(name, mm, mm.device_corpus(cdocs, shard=True), want,
-                 (filter_cuda, kernel))
+            cell(name, mm, mm.device_corpus(cdocs, shard=True), want, kernel)
         specs_h = [{"id": i, "value": v} for i, v in enumerate(needles)]
         mg = Matcher(specs_h, ScanConfig(backend="device", chunk_len=4096,
                                          bloom_impl="take"), device=DEVICE)
         assert mg.cascade_model.take_branch(hs.packed.row_len) == "grouped"
         cell("take-grouped", mg, hs, mg.match_arrays(h),
-             (filter_cuda, GROUPED))
+             "grouped_take_extract", "grouped_take_refine")
         mc = Matcher(specs_h, ScanConfig(backend="device", chunk_len=4096,
                                          table_format="compressed"),
                      device=DEVICE)
         cell("headline-compressed", mc, hds, rd)
         ms_, sdocs, res_sig, res_sdfa, n_slice = sig
         cell("signature-byte", ms_, ms_.device_corpus(sdocs, shard=True),
-             res_sig, (filter_cuda, GROUPED))
+             res_sig, "grouped_take_extract", "grouped_take_refine")
         ms_.config = dataclasses.replace(ms_.config, engine="dfa")
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
@@ -2958,15 +2847,14 @@ def phase_shard_path(torch, card, kernels, head, planted, tile_cell, sig,
             f"dense bank) is held once on the card for {SHARDS} shards: "
             f"device memory grew {grown} bytes over the sharded dfa pass "
             f"(its 8 MiB of rows and buffers included)")
-        err = max(err, cell.err)
-        launched = launched_of(kernels)
+        launched = launch_counts(launches0)
 
     # (d) the dry run; (e) two processes on the card
     log(f"phase 11d: {dryrun_multichip(SHARDS, DEVICE)}")
     phase_two_processes(torch, card, m)
-    assert all(n > 0 for n in launched), launched
-    log(f"phase 11 hand kernel launches ({KERNEL_ORDER}): {launched}")
-    return launched, err
+    assert all(n > 0 for n in launched.values()), launched
+    log(f"phase 11 hand kernel launches: {launched}")
+    return launched
 
 
 def run_cli(*arg_lists):
@@ -2992,13 +2880,12 @@ def run_cli(*arg_lists):
     return outs
 
 
-def phase_remaining_surface(torch, card, kernels, head, planted, sig,
-                            sig_build_s):
+def phase_remaining_surface(torch, card, head, planted, sig, sig_build_s):
     """Phase 12: the native builder beside the numpy one, matcher files,
     the profiling hooks, the command line and the examples on the card
-    (the module docstring's item 12).  Returns the hand kernels' launches
-    of the phase and their largest difference from their plain versions
-    at its shapes."""
+    (the module docstring's item 12), every launch of the held parts held
+    against its plain version.  Returns the hand kernels' launches of the
+    phase."""
     import glob
     import math
     import os
@@ -3008,8 +2895,6 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     from php_aho_corasick_tpu_torch.examples import (
         basic, bulk_scan, serving_loop,
     )
-    from php_aho_corasick_tpu_torch.models import tile_dfa
-    from php_aho_corasick_tpu_torch.ops import filter_cuda, scan_cuda
     from php_aho_corasick_tpu_torch.utils import profiling
     from php_aho_corasick_tpu_torch.utils.serialization import (
         load_matcher, save_matcher,
@@ -3022,7 +2907,6 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     work = os.path.join(root, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    err = 0
 
     # (a) the headline set by both builders
     specs = [{"id": i, "value": p} for i, p in enumerate(needles)]
@@ -3049,7 +2933,7 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
         f"finalize {times[True]:.3f} s native, {times[False]:.3f} s numpy, "
         f"host clock); native library {os.path.relpath(lib, root)}")
 
-    counts_zeroed(kernels)
+    before = launch_counts()
     # (b) the 1M signature-byte matcher through a file, onto the card
     path = os.path.join(work, "signature-byte.npz")
     t0 = time.perf_counter()
@@ -3065,15 +2949,11 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     assert ml.automaton.n_states == ms_.automaton.n_states
     t0 = time.perf_counter()
     hl = ml.device_corpus(sdocs)
-    got, calls = spy_calls(GROUPED, lambda: ml.match_arrays_many([hl])[0])
+    got, _ = held_calls(lambda: ml.match_arrays_many([hl])[0],
+                        "grouped_take_extract", "grouped_take_refine")
     first_s = time.perf_counter() - t0
     for key in res_sig:
         assert np.array_equal(got[key], res_sig[key]), f"loaded sig {key}"
-    for name in GROUPED:
-        assert calls[name], f"the loaded matcher launched no {name}"
-        for call in calls[name]:
-            err = max(err, held_to_plain(
-                torch, name, call, "at the loaded signature-byte shape"))
     log(f"phase 12b: signature-byte ({ml.n_patterns} patterns, "
         f"{ml.automaton.n_states} states) saved in {save_s:.2f} s to "
         f"{size} bytes, loaded onto the card in {load_s:.2f} s (native "
@@ -3085,12 +2965,10 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     save_matcher(m, path)
     mh = load_matcher(path, m.config, device=DEVICE)
     assert mh.table_format == "dense"
-    got, call = spy_first(filter_cuda, "fused_sampled_extract",
-                          lambda: mh.match_arrays_many([hd])[0])
+    got, _ = held_calls(lambda: mh.match_arrays_many([hd])[0],
+                        "fused_sampled_extract")
     for key in rd:
         assert np.array_equal(got[key], rd[key]), f"loaded headline {key}"
-    err = max(err, held_to_plain(torch, "fused_sampled_extract", call,
-                                 "at the loaded headline's shape"))
     log(f"phase 12b: the headline matcher (dense) through a file of "
         f"{os.path.getsize(path)} bytes: {got['doc'].shape[0]} records over "
         f"phase 4's planted handle, equal")
@@ -3135,10 +3013,7 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     cli_s = time.perf_counter() - t0
     mi = Matcher([{"id": i, "value": p} for i, p in enumerate(pats)],
                  ScanConfig(), device=DEVICE)
-    recs, call = spy_first(scan_cuda, "scan_states_tile",
-                           lambda: mi.match(data), also=(tile_dfa,))
-    err = max(err, held_to_plain(torch, "scan_states_tile", call,
-                                 "at the command line's shape"))
+    recs, _ = held_calls(lambda: mi.match(data), "scan_states_tile")
     want = [json.dumps({"pos": r["pos"], "start": r["start_postion"],
                         "pattern": r["value"].decode()}) for r in recs]
     assert scan_out.splitlines() == want, "cli scan != in-process records"
@@ -3155,21 +3030,17 @@ def phase_remaining_surface(torch, card, kernels, head, planted, sig,
     # (e) the examples at their default sizes
     t0 = time.perf_counter()
     basic.main()
-    counts, call = spy_first(filter_cuda, "fused_sampled_extract",
-                             bulk_scan.main)
+    counts, _ = held_calls(bulk_scan.main, "fused_sampled_extract")
     assert len(counts) == 3 and min(counts) >= 1, counts
-    err = max(err, held_to_plain(torch, "fused_sampled_extract", call,
-                                 "at the bulk_scan example's shape"))
     recs = serving_loop.main()
     assert recs and recs[0]["keyIdx"] == 42, recs
     log(f"phase 12e: the three examples at their default sizes in "
         f"{time.perf_counter() - t0:.1f} s (bulk_scan's batches found "
         f"{counts} matches)")
-    launched = launched_of(kernels)
+    launched = launch_counts(before)
     shutil.rmtree(work)
-    log(f"phase 12 hand kernel launches ({KERNEL_ORDER}): "
-        f"{launched}")
-    return launched, err
+    log(f"phase 12 hand kernel launches: {launched}")
+    return launched
 
 
 SOAK_SEED, SOAK_CASES = 0, 300  # phase 13: the soak's fixed slice
@@ -3196,12 +3067,10 @@ def phase_soak(card):
     from its plain version, a fault of the child, a hand kernel the cases
     never launched, or scans and skips other than the slice's; returns
     each kernel's launches over the phase and its largest difference from
-    the plain version, in the order of ``soak.KERNELS``."""
+    the plain version, by name."""
     import os
     import signal
     import tempfile
-
-    from php_aho_corasick_tpu_torch import soak
 
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
@@ -3229,10 +3098,11 @@ def phase_soak(card):
         log(f"  {ln}")
     assert got["cases"] == SOAK_CASES and got["mismatches"] == 0, got
     assert (got["scans"], got["skips"]) == (SOAK_SCANS, SOAK_SKIPS), got
-    launched = [got["kernels"][name]["launches"] for _, name in soak.KERNELS]
-    errs = [got["kernels"][name]["max_abs_err"] for _, name in soak.KERNELS]
-    assert all(n > 0 for n in launched), got["kernels"]
-    assert errs == [0] * len(errs), got["kernels"]
+    launched = {k: v["launches"] for k, v in got["kernels"].items()}
+    errs = {k: v["max_abs_err"] for k, v in got["kernels"].items()}
+    assert set(launched) == set(launch_counts()), got["kernels"]
+    assert all(n > 0 for n in launched.values()), got["kernels"]
+    assert not any(errs.values()), got["kernels"]
     log(f"phase 13: soak seed {SOAK_SEED}, {got['cases']} cases, 0 "
         f"mismatches, {got['scans']} scans, skips {got['skips']}, "
         f"{seconds:.1f} s; kernels (cases, launches): "
@@ -3247,7 +3117,7 @@ def phase_soak(card):
 HEX_NEEDLES, HEX_MIB = 1_000_000, 64
 
 
-def phase_hex_grouped(torch, card, kernels):
+def phase_hex_grouped(torch, card):
     """Phase 14a: the hex signature set at 1M needles in this process (the
     draw of ``bench.signatures``): the dense table and the take-grouped
     filter; one ``match_arrays`` pass over its 64 MiB counted, its
@@ -3255,8 +3125,8 @@ def phase_hex_grouped(torch, card, kernels):
     against their plain versions and timed at its shapes
     (:func:`grouped_check`), and the records verify's launches likewise
     (:func:`verify_check`).  Returns the pass's hand kernel launches, the
-    grouped kernels' largest difference and times, and the records
-    verify's."""
+    grouped kernels' times, and the records verify's largest difference
+    and times."""
     from php_aho_corasick_tpu_torch import Matcher, ScanConfig
     from php_aho_corasick_tpu_torch.bench import signatures
 
@@ -3274,11 +3144,11 @@ def phase_hex_grouped(torch, card, kernels):
     assert cm.take_branch(L) == "grouped", cm.plan.reason
     setup_s = time.perf_counter() - t0
     m.match_arrays(h)  # the adaptive capacities settle
-    counts_zeroed(kernels)
+    before = launch_counts()
     res = m.match_arrays(h)
-    launched = launched_of(kernels)
-    assert min(launched[4:7]) > 0 and not any(launched[:4]), launched
-    assert not launched[7], launched
+    launched = launch_counts(before)
+    launched_only(launched, "signature-hex", 1, "grouped_take_extract",
+                  "grouped_take_refine", "verify_records")
     n = res["doc"].shape[0]
     assert n >= n_planted == 200, (n, n_planted)
     cap_a, _ = cm.learned_caps
@@ -3290,15 +3160,15 @@ def phase_hex_grouped(torch, card, kernels):
         f"{cm.plan.reason}, group size {cm.take_group_block_r()}, rows "
         f"{tuple(h.chunks_d.shape)}; built, planned and uploaded in "
         f"{setup_s:.1f} s (host clock); a pass {n} records ({n_planted} "
-        f"planted), hand kernel launches ({KERNEL_ORDER}) {launched}; "
+        f"planted), hand kernel launches {launched}; "
         f"device time of the grouped filter {cuda_ms(run, 5):.3f} ms; on "
         f"{card}")
-    err, times = grouped_check(torch, card, "signature-hex", run)
+    times = grouped_check(torch, card, "signature-hex", run)
     vr_hex = verify_check(torch, card, "signature-hex",
                           lambda: m.match_arrays(h))
     del m, cm, h, res
     torch.cuda.empty_cache()
-    return launched, err, times, vr_hex
+    return launched, times, vr_hex
 
 
 #: phase 14: the measurement tools, in the order they run, at these sizes
@@ -3423,8 +3293,8 @@ def check_tool(name, rec, expected):
         # the dense hex table at 1M needles plans the take-grouped filter
         assert rec["planted"] == 200 <= rec["matches"], rec
         assert rec["table_format"] == "dense", rec
-        assert all(rec["kernels"][n]["launches"] > 0 for n in GROUPED), (
-            rec["kernels"])
+        assert all(rec["kernels"][n]["launches"] > 0 for n in (
+            "grouped_take_extract", "grouped_take_refine")), rec["kernels"]
     elif name == "scaling":
         assert rec["shards_of_one_card"] and rec["count"] > 0, rec
         assert [r["devices"] for r in rec["rows"]] == [1, 2, 4], rec
@@ -3442,15 +3312,13 @@ def phase_bench(card, auto, needles, base):
     :func:`check_tool` against :func:`bench_expected` (counted in a
     thread while the tools run), or a held launch that differs from its
     plain version.  Returns each kernel's launches over the tools' runs
-    and its largest difference, in the order of ``soak.KERNELS``."""
+    and its largest difference, by name."""
     import os
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
-    from php_aho_corasick_tpu_torch import soak
-
-    names = [name for _, name in soak.KERNELS]
-    launched, errs = [0] * len(names), [0] * len(names)
+    launched = dict.fromkeys(launch_counts(), 0)
+    errs = dict(launched)
     root = os.path.dirname(os.path.abspath(__file__))
     t_all = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp, \
@@ -3463,20 +3331,23 @@ def phase_bench(card, auto, needles, base):
             assert set(rec) == ref_keys | port_keys, (name, sorted(rec))
             check_tool(name, rec, pending.result())
             k = rec["kernels"]
-            launched = [a + k[n]["launches"] for a, n in zip(launched, names)]
-            errs = [max(a, k[n]["max_abs_err"]) for a, n in zip(errs, names)]
-            assert errs == [0] * len(names), (name, k)
+            assert set(k) == set(launched), (name, k)
+            for n in k:
+                launched[n] += k[n]["launches"]
+                errs[n] = max(errs[n], k[n]["max_abs_err"])
+            assert not any(errs.values()), (name, k)
             log(f"phase 14: {name} {' '.join(args)} in {seconds:.1f} s: "
                 f"{json.dumps(rec)}")
     expected = pending.result()
-    assert launched[0] > 0, "no tool launched the fused kernel"
-    assert min(launched[4:6]) > 0, "no tool launched the grouped kernels"
+    assert min(launched["fused_sampled_extract"],
+               launched["grouped_take_extract"],
+               launched["grouped_take_refine"]) > 0, launched
     log(f"phase 14: 5 tools in {time.perf_counter() - t_all:.1f} s, every "
         f"held launch bit-equal to its plain version; density rows' records "
         f"equal the host walk's {expected['density']} (records, plants "
         f"whole), the protocol's matches a sample the window count's "
-        f"{expected['protocol']}; hand kernel launches ({KERNEL_ORDER}): "
-        f"{launched}; on {card}")
+        f"{expected['protocol']}; hand kernel launches: {launched}; on "
+        f"{card}")
     return launched, errs
 
 
@@ -3518,7 +3389,6 @@ def main(argv=None):
     from php_aho_corasick_tpu_torch.ops.filter_cuda import (
         bloom_hit as bh,
         bloom_word_vmem as bwv,
-        flat_take_extract as fte,
         fused_launch_shape,
         fused_sampled_extract as fse,
         grouped_take_extract as gte,
@@ -3526,7 +3396,6 @@ def main(argv=None):
         verify_records as vr,
     )
     from php_aho_corasick_tpu_torch.ops.scan_cuda import (
-        _scan_states_tile_torch,
         scan_states_tile as sst,
     )
 
@@ -3543,17 +3412,17 @@ def main(argv=None):
         log(f"  {name}: {r['seconds']:.2f} s; {ptxas_lines(report, name)}")
 
     # 2a. kernel vs plain: random tables, shorts, pack=1
-    n_hits, err1 = phase_kernel_random(torch, fse, plain)
+    n_hits, err1 = phase_kernel_random(torch, fse)
     log(f"kernel check 1 (random tables, shorts, pack=1): bit-equal, "
         f"{n_hits} hits")
-    n_fc, err_fc = phase_fused_cases(torch, fse, plain)
+    n_fc, err_fc = phase_fused_cases(torch, fse)
     log(f"kernel check 1b (fused, {n_fc} cases: spc 1-4 x pack 1/2/4 x q "
         f"1/9/16, prefix on/off, tables over the shared budget): "
         f"bit-equal")
-    n_cases, tile_err = phase_tile_random(torch, sst, _scan_states_tile_torch)
+    n_cases, tile_err = phase_tile_random(torch, sst)
     log(f"kernel check 3 (scan_states_tile, {n_cases} random tables): "
         f"bit-equal")
-    n_sync, sync_err = phase_tile_sync(torch, sst, _scan_states_tile_torch)
+    n_sync, sync_err = phase_tile_sync(torch, sst)
     log(f"kernel check 3b (scan_states_tile with sync_len, {n_sync} "
         f"Aho-Corasick tables): bit-equal")
     n_vmem, vmem_err, n_hit, hit_err = phase_bloom_random(torch, bwv, bh)
@@ -3594,15 +3463,15 @@ def main(argv=None):
     # 2b. kernel vs plain: headline plan tables at the headline shape
     args, kw = extract_args(cm, h)
     got = fse(*args, **kw)
-    want = plain(args, kw)
+    want = fse.plain(*args, **kw)
     torch.cuda.synchronize()
     err2 = compare(got, want, "headline plan, prefix refine")
     n_blocks = got[4].shape[0]
     log(f"kernel check 2 (headline plan, mpr {kw['mpr']}, {n_blocks} "
         f"blocks, prefix refine): bit-equal, {int(got[4].sum())} hits")
     k_ms = cuda_ms(lambda: fse(*args, **kw), 50)
-    p_ms = cuda_ms(lambda: plain(args, kw), 3)
-    b_ms, b_by, b_bytes, b_ops = bound_ms(args, kw, got)
+    p_ms = cuda_ms(lambda: fse.plain(*args, **kw), 3)
+    b_ms, b_by, b_bytes, b_ops = in_ms(fused_bound(args, kw, got))
     log(f"fused_sampled_extract at the headline shape: {k_ms:.4f} ms "
         f"({100 * b_ms / k_ms:.1f}% of bound; plain {p_ms:.3f} ms, bound "
         f"{b_ms:.4f} ms by {b_by}: {b_bytes} bytes, {b_ops} ops) on {card}")
@@ -3669,8 +3538,7 @@ def main(argv=None):
 
     # 5. the tile path
     tile_cell, tile_kernel = phase_tile_path(
-        torch, base, card, sst, _scan_states_tile_torch,
-        ptxas_lines(report, "scan_states_tile"))
+        torch, base, card, sst, ptxas_lines(report, "scan_states_tile"))
     tile_kernel["max_abs_err"] = max(tile_kernel["max_abs_err"], tile_err,
                                      sync_err)
 
@@ -3683,22 +3551,33 @@ def main(argv=None):
     hit_kernel["max_abs_err"] = max(hit_kernel["max_abs_err"], hit_err)
 
     # 8. the take filters: the grouped one on its two kernels
-    kernels = (fse, bwv, bh, sst, gte, gtr, vr, fte)
-    take_launched, take_err, take_times, vr_shapes, flat = phase_take_path(
-        torch, base, card, (needles, h, warm), kernels)
+    take_launched, take_times, vr_shapes, flat = phase_take_path(
+        torch, base, card, (needles, h, warm))
+    fused_kernel = {
+        "name": "fused_sampled_extract",
+        "route": "cuda",
+        "source": "php_aho_corasick_tpu_torch/csrc/fused_sampled_extract.cu",
+        "replaces": "php_aho_corasick_tpu/ops/filter_pallas.py:765",
+        "launches": launches,
+        "max_abs_err": max(err1, err_fc, err2),
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
     grouped = {}
-    for name in GROUPED:
+    for name, line in (("grouped_take_extract", 468),
+                       ("grouped_take_refine", 534)):
         grouped[name] = {
             "name": name,
             "route": "cuda",
             "source": f"php_aho_corasick_tpu_torch/csrc/{name}.cu",
             # XLA code of the reference, not a Pallas kernel: stages A and
             # B1, and stage B2 with its bloom_hit_take bit test
-            "replaces": ("php_aho_corasick_tpu/ops/filter_jax.py:468"
-                         if name == GROUPED[0] else
-                         "php_aho_corasick_tpu/ops/filter_jax.py:534"),
+            "replaces": f"php_aho_corasick_tpu/ops/filter_jax.py:{line}",
             "launches": 0,
-            "max_abs_err": max(gr_err, take_err),
+            "max_abs_err": gr_err,
             **take_times[name],  # at the take-grouped cell's shapes
             "library_ms": None,
         }
@@ -3724,73 +3603,61 @@ def main(argv=None):
         # and compaction
         "replaces": "php_aho_corasick_tpu/ops/filter_jax.py:214",
         "launches": 0,
-        "max_abs_err": max(e for e, _ in flat.values()),
-        **flat["take-flat"][1],  # at the take-flat cell's shapes
+        "max_abs_err": 0,  # every launch held: a difference raises
+        **flat["take-flat"],  # at the take-flat cell's shapes
         "library_ms": None,
     }
-    # the seven kernel lines after the fused kernel, in the order of
-    # ``kernels`` (the fused kernel's launches are counted apart)
-    others = (rows_kernel, hit_kernel, tile_kernel, *grouped.values(),
-              verify_kernel, flat_kernel)
+    kernels = [fused_kernel, tile_kernel, rows_kernel, hit_kernel,
+               *grouped.values(), verify_kernel, flat_kernel]
+    lines = {k["name"]: k for k in kernels}
+    assert set(lines) == set(launch_counts()), sorted(lines)
 
     def count(launched, errs=None):
-        nonlocal launches
-        launches += launched[0]
-        for k, n in zip(others, launched[1:]):
-            k["launches"] += n
-        for k, e in zip(others, (errs or [0] * N_KERNELS)[1:]):
-            k["max_abs_err"] = max(k["max_abs_err"], e)
+        """A phase's launches and largest differences by kernel name,
+        added to the kernel lines."""
+        for name, k in lines.items():
+            k["launches"] += launched[name]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   (errs or {}).get(name, 0))
 
     count(take_launched)
 
     # 9. the compressed table, the flagged-window verify, the k-gram engine
-    sig_launched, sig_err, sig_times, sig, sig_build_s = phase_signature_path(
-        torch, card, kernels)
+    sig_launched, sig_times, sig, sig_build_s = phase_signature_path(
+        torch, card)
     comp_launched, comp_err = phase_compressed_path(
-        torch, card, kernels, (needles, m, hd, rd))
-    kgram_launched = phase_kgram_path(torch, card, kernels, tile_cell)
-    for launched in (sig_launched, comp_launched, kgram_launched):
-        count(launched)
-    count([0] * N_KERNELS, [0, 0, 0, 0, sig_err, sig_err, 0, 0])
+        torch, card, (needles, m, hd, rd))
+    kgram_launched = phase_kgram_path(torch, card, tile_cell)
+    count(sig_launched)
+    count(comp_launched, {"fused_sampled_extract": comp_err})
+    count(kgram_launched)
 
     # 10. serving and streaming: the fresh-corpus pipeline, the cross-batch
     # double buffer, the stream's two carries, iter_matches, replace, warmup
     serve_launched, serve_err = phase_serving_path(
-        torch, card, kernels, (needles, m, h, hd, rd), tile_cell, base)
-    count(serve_launched)
-    err2 = max(err2, serve_err)
+        torch, card, (needles, m, h, hd, rd), tile_cell, base)
+    count(serve_launched, {"fused_sampled_extract": serve_err})
 
     # 11. the data mesh: 4 shards of the card
-    shard_launched, shard_err = phase_shard_path(
-        torch, card, kernels, (needles, m, h, warm), (hd, rd), tile_cell, sig,
-        base)
-    count(shard_launched, [shard_err] * N_KERNELS)
-    err2 = max(err2, shard_err)
+    count(phase_shard_path(torch, card, (needles, m, h, warm), (hd, rd),
+                           tile_cell, sig, base))
 
     # 12. the native builder, matcher files, profiling, the CLI, examples
-    rest_launched, rest_err = phase_remaining_surface(
-        torch, card, kernels, (needles, m, h, warm, base), (hd, rd), sig,
-        sig_build_s)
-    count(rest_launched, [rest_err] * N_KERNELS)
-    err2 = max(err2, rest_err)
+    count(phase_remaining_surface(torch, card, (needles, m, h, warm, base),
+                                  (hd, rd), sig, sig_build_s))
 
     # 13. the randomized soak's fixed slice, in a subprocess
-    soak_launched, soak_err = phase_soak(card)
-    count(soak_launched, soak_err)
-    err2 = max(err2, soak_err[0])
+    count(*phase_soak(card))
 
     # 14. the hex signature set's grouped filter in process, then the
     # measurement tools in subprocesses
     del sig
-    hex_launched, hex_err, hex_times, vr_shapes["signature-hex"] = (
-        phase_hex_grouped(torch, card, kernels))
-    count(hex_launched, [0, 0, 0, 0, hex_err, hex_err,
-                         vr_shapes["signature-hex"][0], 0])
-    bench_launched, bench_err = phase_bench(card, m.automaton, needles,
-                                            [row.tobytes() for row in base])
-    count(bench_launched, bench_err)
-    err2 = max(err2, bench_err[0])
-    for name in GROUPED:
+    hex_launched, hex_times, vr_shapes["signature-hex"] = (
+        phase_hex_grouped(torch, card))
+    count(hex_launched, {"verify_records": vr_shapes["signature-hex"][0]})
+    count(*phase_bench(card, m.automaton, needles,
+                       [row.tobytes() for row in base]))
+    for name in grouped:
         log(f"{name} at three shapes, ms (plain, bound): " + "; ".join(
             f"{what} {t[name]['ms']:.4f} ({t[name]['plain_ms']:.4f}, "
             f"{t[name]['bound_ms']:.6f} by {t[name]['bound_by']})"
@@ -3800,23 +3667,9 @@ def main(argv=None):
             + f"; on {card}")
 
     # 15. timings and the last line
-    kernels = [{
-        "name": "fused_sampled_extract",
-        "route": "cuda",
-        "source": "php_aho_corasick_tpu_torch/csrc/fused_sampled_extract.cu",
-        "replaces": "php_aho_corasick_tpu/ops/filter_pallas.py:765",
-        "launches": launches,
-        "max_abs_err": max(err1, err_fc, err2, comp_err),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-    }, tile_kernel, rows_kernel, hit_kernel, *grouped.values(),
-        verify_kernel, flat_kernel]
     log("flat_take_extract at two shapes, ms (plain, bound): " + "; ".join(
         f"{what} {t['ms']:.4f} ({t['plain_ms']:.4f}, {t['bound_ms']:.6f} by "
-        f"{t['bound_by']})" for what, (_, t) in flat.items())
+        f"{t['bound_by']})" for what, t in flat.items())
         + f"; on {card}")
     vr_shapes = {"headline": (err_h, vr_times),
                  "planted": (err_p, vr_planted), **vr_shapes}

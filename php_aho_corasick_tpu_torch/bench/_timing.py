@@ -19,6 +19,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import soak
+from ..ops._build import launch_counts
 
 #: the PHP extension's implied scan rate: 2 MiB a pass in 0.174326 s,
 #: automaton build included (its README; ``bench.py``)
@@ -88,13 +89,6 @@ def runs_ms(device: torch.device, fn: Callable, runs: int,
     return sorted(call_ms(device, fn)[0] / per for _ in range(runs))
 
 
-def kernel_launches() -> Dict[str, int]:
-    """The hand kernels' launch counters, by name (0 on the CPU, where the
-    wrappers run their plain versions)."""
-    return {name: n for (_, name), n in zip(soak.KERNELS,
-                                            soak.kernel_launches())}
-
-
 class Kernels:
     """Which hand kernels a tool launched on ``device``: the counters from
     the tool's start, and on a card the largest difference from the plain
@@ -103,7 +97,7 @@ class Kernels:
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
-        self.start = kernel_launches()
+        self.start = launch_counts()
         self.err: Optional[Dict[str, int]] = None
 
     def hold(self, fn: Callable) -> None:
@@ -119,11 +113,10 @@ class Kernels:
     def record(self) -> Dict[str, dict]:
         if self.device.type == "cuda" and self.err is None:
             raise RuntimeError("no held pass ran on the card")
-        now = kernel_launches()
         return {name: {
-            "launches": now[name] - self.start[name],
+            "launches": n,
             "max_abs_err": None if self.err is None else self.err[name],
-        } for name in now}
+        } for name, n in launch_counts(self.start).items()}
 
 
 def finish(record: dict, artifact: Optional[str]) -> dict:

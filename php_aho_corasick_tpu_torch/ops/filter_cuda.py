@@ -56,10 +56,11 @@ For every stride cell of the corpus grid the fused filter
    survivor counts, and
 5. optionally refines the slots against the small prefix bit bloom.
 
-On a CUDA tensor each wrapper launches its kernel (counted in its
-``launches`` attribute) and never falls back; on a CPU tensor it runs its
-plain version, which the tests hold bit for bit against the JAX
-package's own mirror of the Pallas kernel.
+Each wrapper is declared with ``_build.hand_kernel``: on a CUDA tensor
+it launches its kernel (counted in its ``launches`` attribute) and never
+falls back; on a CPU tensor it runs its plain version, which the tests
+hold bit for bit against the JAX package's own mirror of the Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._build import hand_kernel
 from .filter_torch import (
     FUSED_BLOCK_R, GRAM_BASE, GRAM_BASE2, INT32_MAX, KNUTH, SALT2, U32_MASK,
     _flat_extract_torch, _planes_code, _salted_probe, _verify_records_torch,
@@ -77,14 +79,16 @@ from .filter_torch import (
 )
 
 
-def _bank_probe_torch(table, code_u, salts, log2_rows, pack):
+def _bank_probe_torch(table, codes, salts, log2_rows, pack=1):
     """AND over ``salts`` of each code's salted bloom word (flat probe of
     the ``[k * N / pack, 128]`` bank table; ``pack`` banks share a
-    physical word as ``32 / pack``-bit sub-words).  ``code_u`` holds the
-    codes as unsigned 32-bit values in int64."""
+    physical word as ``32 / pack``-bit sub-words): the plain version of
+    :func:`bloom_word_vmem`.  ``codes`` are read as unsigned 32-bit
+    values; runs on any device."""
     N = (1 << log2_rows) // pack  # physical words per probe table
     sw = 32 // pack
     words_flat = table.reshape(-1)
+    code_u = u32(codes)
     acc = None
     for p, salt in enumerate(salts):
         rows = mul32(code_u ^ salt, KNUTH) >> (32 - log2_rows)
@@ -212,13 +216,22 @@ def _plane_torch(phase_g, c, spc, tot):
     )
 
 
+def _fused_blocks(phase_g, mpr, block_r):
+    """Blocks of ``block_r`` rows in the fused filter's grid; raises on an
+    ``mpr`` that neither the kernel nor its plain version takes."""
+    if mpr % 8 or not 8 <= mpr <= 128:
+        raise ValueError(f"mpr={mpr}: must be a multiple of 8 in [8, 128]")
+    return (phase_g.shape[1] - 8) // block_r
+
+
 def _fused_extract_torch(
-    table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
-    block_r, n_blocks, n_grid, l16, prefix_on, prefix_table=None,
-    prefix_salts=(), prefix_log2=0,
+    table, phase_g, sw_g, mll, *, salts, log2_rows, pack, q, spc, mpr,
+    block_r=FUSED_BLOCK_R, n_grid, l16=0, prefix_on=False,
+    prefix_table=None, prefix_salts=(), prefix_log2=0,
 ):
     """Plain PyTorch version of the fused kernel (same plane, slot and
     hash semantics); runs on any device."""
+    n_blocks = _fused_blocks(phase_g, mpr, block_r)
     tot = n_blocks * block_r * 128
     dev = table.device
 
@@ -327,70 +340,17 @@ def _launch_consts(spc, phase_words, q, l16, salts, prefix_salts):
     )
 
 
-def _fused_fn():
-    from ._build import load_library
-
-    fn = load_library("fused_sampled_extract").fused_sampled_extract_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch_cuda(
-    table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
-    n_blocks, n_grid, l16, prefix_on, prefix_table, prefix_salts,
-    prefix_log2,
-):
-    fn = _fused_fn()
-    dev = table.device
-    out_shape = (n_blocks * mpr, 128)
-    r_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
-    w_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
-    swo_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
-    h_s = torch.empty(out_shape, dtype=torch.int32, device=dev)
-    cnt = torch.empty((n_blocks, 128), dtype=torch.int32, device=dev)
-    woff, dcell, salts_a, gram_b, pref_w, psalts_a = _launch_consts(
-        spc, phase_g.shape[1] * 128, q, l16, tuple(salts),
-        tuple(prefix_salts))
-    rc = fn(
-        table.data_ptr(), table.numel(), phase_g.data_ptr(), woff, dcell,
-        spc,
-        sw_g.data_ptr() if sw_g is not None else None,
-        prefix_table.data_ptr() if prefix_table is not None else None,
-        prefix_table.numel() if prefix_table is not None else 0,
-        mll.data_ptr(),
-        salts_a, len(salts), log2_rows, pack, gram_b, q, mpr, n_blocks,
-        n_grid, pref_w, l16, int(bool(prefix_on)), psalts_a,
-        len(prefix_salts), prefix_log2,
-        r_s.data_ptr(), w_s.data_ptr(), swo_s.data_ptr(), h_s.data_ptr(),
-        cnt.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_sampled_extract kernel launch failed: CUDA error {rc}"
-        )
-    return r_s, w_s, swo_s, h_s, cnt
-
-
 def fused_launch_shape(q: int, table_bytes: int, n_blocks: int) -> dict:
     """Grid, block and resident blocks per SM of the fused kernel's launch
     on the current CUDA device (launches nothing)."""
-    from ._build import load_library
-
-    fn = load_library("fused_sampled_extract").fused_sampled_extract_shape
-    fn.argtypes = [_I, _LL, _I, _P, _P, _P]
-    fn.restype = ctypes.c_int
-    grid, block, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = fn(q, table_bytes, n_blocks, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(per_sm))
-    if rc != 0:
-        raise RuntimeError(f"fused_sampled_extract_shape: CUDA error {rc}")
-    return {"grid": grid.value, "block": block.value,
-            "blocks_per_sm": per_sm.value}
+    return fused_sampled_extract.launch_shape(
+        "fused_sampled_extract_shape", [_I, _LL, _I, _P, _P, _P], q,
+        table_bytes, n_blocks)
 
 
+@hand_kernel(plain=_fused_extract_torch)
 def fused_sampled_extract(
+    kernel,
     table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
     phase_g: torch.Tensor,  # [spc, R_pad + 8, 128] int32 word phases
     sw_g: Optional[torch.Tensor],  # [R_pad, 128] int32 short words
@@ -421,17 +381,8 @@ def fused_sampled_extract(
     A CUDA ``table`` launches the Hopper kernel (counted in
     ``fused_sampled_extract.launches``); a CPU one runs the plain
     version."""
-    if mpr % 8 or not 8 <= mpr <= 128:
-        raise ValueError(f"mpr={mpr}: must be a multiple of 8 in [8, 128]")
+    n_blocks = _fused_blocks(phase_g, mpr, block_r)
     R_pad = phase_g.shape[1] - 8
-    n_blocks = R_pad // block_r
-    if not table.is_cuda:
-        return _fused_extract_torch(
-            table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
-            block_r, n_blocks, n_grid, l16, prefix_on,
-            prefix_table=prefix_table, prefix_salts=prefix_salts,
-            prefix_log2=prefix_log2,
-        )
     dev = table.device
     n_banks = (1 << log2_rows) // 128
     if block_r != FUSED_BLOCK_R or R_pad % FUSED_BLOCK_R:
@@ -453,16 +404,28 @@ def fused_sampled_extract(
             prefix_table.numel() * 32 != 1 << prefix_log2
         ):
             raise ValueError("prefix_table size must be 2**prefix_log2 bits")
-    out = _launch_cuda(
-        table, phase_g, sw_g, mll, salts, log2_rows, pack, q, spc, mpr,
-        n_blocks, n_grid, l16, prefix_on, prefix_table, prefix_salts,
-        prefix_log2,
+    out_shape = (n_blocks * mpr, 128)
+    r_s, w_s, swo_s, h_s = (torch.empty(out_shape, dtype=torch.int32,
+                                        device=dev) for _ in range(4))
+    cnt = torch.empty((n_blocks, 128), dtype=torch.int32, device=dev)
+    woff, dcell, salts_a, gram_b, pref_w, psalts_a = _launch_consts(
+        spc, phase_g.shape[1] * 128, q, l16, tuple(salts),
+        tuple(prefix_salts))
+    kernel.launch(
+        kernel.entry_point("fused_sampled_extract_launch", _ARGTYPES), dev,
+        table.data_ptr(), table.numel(), phase_g.data_ptr(), woff, dcell,
+        spc,
+        sw_g.data_ptr() if sw_g is not None else None,
+        prefix_table.data_ptr() if prefix_table is not None else None,
+        prefix_table.numel() if prefix_table is not None else 0,
+        mll.data_ptr(),
+        salts_a, len(salts), log2_rows, pack, gram_b, q, mpr, n_blocks,
+        n_grid, pref_w, l16, int(bool(prefix_on)), psalts_a,
+        len(prefix_salts), prefix_log2,
+        r_s.data_ptr(), w_s.data_ptr(), swo_s.data_ptr(), h_s.data_ptr(),
+        cnt.data_ptr(),
     )
-    fused_sampled_extract.launches += 1
-    return out
-
-
-fused_sampled_extract.launches = 0
+    return r_s, w_s, swo_s, h_s, cnt
 
 
 def _out_like(codes: torch.Tensor) -> torch.Tensor:
@@ -485,31 +448,18 @@ BLOOM_WORD_VMEM_ARGTYPES = {
 }
 
 
-def _bloom_word_vmem_fn(name="bloom_word_vmem_launch"):
-    from ._build import load_library
-
-    fn = getattr(load_library("bloom_word_vmem"), name)
-    if fn.argtypes is None:
-        fn.argtypes = BLOOM_WORD_VMEM_ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def bloom_word_vmem_launch_shape(table_words: int, pack: int, n: int) -> dict:
     """Grid, block and resident blocks per SM of ``bloom_word_vmem``'s
     launch for ``n`` codes on the current CUDA device (launches
     nothing)."""
-    grid, block, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = _bloom_word_vmem_fn("bloom_word_vmem_shape")(
-        table_words, pack, n, ctypes.byref(grid), ctypes.byref(block),
-        ctypes.byref(per_sm))
-    if rc != 0:
-        raise RuntimeError(f"bloom_word_vmem_shape: CUDA error {rc}")
-    return {"grid": grid.value, "block": block.value,
-            "blocks_per_sm": per_sm.value}
+    name = "bloom_word_vmem_shape"
+    return bloom_word_vmem.launch_shape(
+        name, BLOOM_WORD_VMEM_ARGTYPES[name], table_words, pack, n)
 
 
+@hand_kernel(plain=_bank_probe_torch)
 def bloom_word_vmem(
+    kernel,
     table: torch.Tensor,  # [k * n_banks / pack, 128] int32 bank rows
     codes: torch.Tensor,  # [...] int32 gram codes
     salts: tuple,  # k probe salts, one bank table each
@@ -524,8 +474,6 @@ def bloom_word_vmem(
     ``bloom_word_vmem.launches``); a CPU one runs
     :func:`_bank_probe_torch`.  On the card the result lies at the same
     offset within 16 bytes as ``codes`` (:func:`_out_like`)."""
-    if not table.is_cuda:
-        return _bank_probe_torch(table, u32(codes), salts, log2_rows, pack)
     dev = table.device
     n_banks = (1 << log2_rows) // 128
     if not (1 <= len(salts) <= 8 and pack in (1, 2, 4)
@@ -536,52 +484,40 @@ def bloom_word_vmem(
     out = _out_like(codes)
     if codes.numel() == 0:
         return out
-    rc = _bloom_word_vmem_fn()(
+    name = "bloom_word_vmem_launch"
+    kernel.launch(
+        kernel.entry_point(name, BLOOM_WORD_VMEM_ARGTYPES[name]), dev,
         table.data_ptr(), table.numel(), codes.data_ptr(), out.data_ptr(),
         codes.numel(), _u32_array(salts, len(salts)), len(salts), log2_rows,
-        pack, torch.cuda.current_stream(dev).cuda_stream,
+        pack,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"bloom_word_vmem kernel launch failed: CUDA error {rc}"
-        )
-    bloom_word_vmem.launches += 1
     return out
 
 
-bloom_word_vmem.launches = 0
+#: C signature of ``bloom_hit_launch`` (csrc/bloom_hit.cu): words, their
+#: count, slots, out, n, stream
+BLOOM_HIT_ARGTYPES = [_P, _LL, _P, _P, _LL, _P]
 
 
-def bloom_hit(words: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+@hand_kernel(plain=bloom_hit_take)
+def bloom_hit(kernel, words: torch.Tensor,
+              slots: torch.Tensor) -> torch.Tensor:
     """Bit ``slot`` of the bit bloom ``words [W]`` for every slot in
     ``[0, 32 * W)``, as int32 0/1 of the slots' shape.
 
     A CUDA ``words`` launches ``csrc/bloom_hit.cu`` (counted in
     ``bloom_hit.launches``); a CPU one runs
     ``filter_torch.bloom_hit_take``."""
-    if not words.is_cuda:
-        return bloom_hit_take(words, slots)
     dev = words.device
     _check("words", words, (words.shape[0],), dev)
     _check("slots", slots, slots.shape, dev)
     out = torch.empty_like(slots)
     if slots.numel() == 0:
         return out
-    from ._build import load_library
-
-    fn = load_library("bloom_hit").bloom_hit_launch
-    fn.argtypes = [_P, _LL, _P, _P, _LL, _P]
-    fn.restype = ctypes.c_int
-    rc = fn(words.data_ptr(), words.numel(), slots.data_ptr(),
-            out.data_ptr(), slots.numel(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bloom_hit kernel launch failed: CUDA error {rc}")
-    bloom_hit.launches += 1
+    kernel.launch(kernel.entry_point("bloom_hit_launch", BLOOM_HIT_ARGTYPES),
+                  dev, words.data_ptr(), words.numel(), slots.data_ptr(),
+                  out.data_ptr(), slots.numel())
     return out
-
-
-bloom_hit.launches = 0
 
 
 def grouped_blocks(n_grid: int, block_r: int) -> int:
@@ -590,8 +526,8 @@ def grouped_blocks(n_grid: int, block_r: int) -> int:
     return max(1, -(-(-(-n_grid // 128)) // block_r))
 
 
-def _grouped_extract_torch(words, wc, sw, mll, words2, q, spc, log2_words,
-                           salts, mpr, block_r):
+def _grouped_extract_torch(words, wc, sw, mll, words2=None, *, q, spc,
+                           log2_words, salts, mpr, block_r):
     """Plain PyTorch version of :func:`grouped_take_extract` (stage A,
     rank extraction and stage B1 of the grouped take filter); runs on any
     device."""
@@ -629,9 +565,9 @@ def _grouped_extract_torch(words, wc, sw, mll, words2, q, spc, log2_words,
     return r_s, w_s, swo_s, c_s, cnt
 
 
-def _grouped_refine_torch(slot, r_s, w_s, swo_s, wc, prefix_words, mpr,
-                          block_r, spc, prefix_salts, prefix_log2,
-                          prefix_len):
+def _grouped_refine_torch(slot, r_s, w_s, swo_s, wc, prefix_words=None, *,
+                          mpr, block_r, spc, prefix_salts=(), prefix_log2=0,
+                          prefix_len=0):
     """Plain PyTorch version of :func:`grouped_take_refine` (stage B2 of
     the grouped take filter); runs on any device."""
     dev = r_s.device
@@ -695,17 +631,6 @@ GROUPED_ARGTYPES = {
 }
 
 
-def _grouped_fn(kernel):
-    from ._build import load_library
-
-    name = f"{kernel}_launch"
-    fn = getattr(load_library(kernel), name)
-    if fn.argtypes is None:
-        fn.argtypes = GROUPED_ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.lru_cache(maxsize=64)
 def _extract_consts(q, salts):
     gram_b = [v for row in gram_weight_bytes(q) for v in row]
@@ -714,7 +639,9 @@ def _extract_consts(q, salts):
             _u32_array(gram_b2, 16))
 
 
+@hand_kernel(plain=_grouped_extract_torch)
 def grouped_take_extract(
+    kernel,
     words: torch.Tensor,  # [2**log2_words] int32 positional bloom
     wc: torch.Tensor,  # [B, M * spc] int32 packed corpus words
     sw: Optional[torch.Tensor],  # [B, M] int32 short-start words, or None
@@ -744,9 +671,6 @@ def grouped_take_extract(
     A CUDA ``words`` launches ``csrc/grouped_take_extract.cu`` (counted in
     ``grouped_take_extract.launches``); a CPU one runs
     :func:`_grouped_extract_torch`."""
-    if not words.is_cuda:
-        return _grouped_extract_torch(words, wc, sw, mll, words2, q, spc,
-                                      log2_words, salts, mpr, block_r)
     dev = words.device
     B = wc.shape[0]
     M = wc.shape[1] // spc
@@ -773,23 +697,18 @@ def grouped_take_extract(
         torch.empty(slots, dtype=torch.int32, device=dev) for _ in range(4))
     cnt = torch.empty((n_blocks, 128), dtype=torch.int32, device=dev)
     salts_a, gram_b, gram_b2 = _extract_consts(q, tuple(salts))
-    rc = _grouped_fn("grouped_take_extract")(
+    name = "grouped_take_extract_launch"
+    kernel.launch(
+        kernel.entry_point(name, GROUPED_ARGTYPES[name]), dev,
         wc.data_ptr(), wc.shape[1], spc, M,
         words.data_ptr(), log2_words, salts_a, len(salts),
         words2.data_ptr() if words2 is not None else None,
         sw.data_ptr() if sw is not None else None, mll.data_ptr(),
         gram_b, gram_b2, q, mpr, block_r, n_blocks, n_grid,
         r_s.data_ptr(), w_s.data_ptr(), swo_s.data_ptr(), c_s.data_ptr(),
-        cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        cnt.data_ptr(),
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"grouped_take_extract kernel launch failed: CUDA error {rc}")
-    grouped_take_extract.launches += 1
     return r_s, w_s, swo_s, c_s, cnt
-
-
-grouped_take_extract.launches = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -800,7 +719,9 @@ def _refine_consts(prefix_len, prefix_salts):
             _u32_array(pref_w, max(prefix_len, 1)))
 
 
+@hand_kernel(plain=_grouped_refine_torch)
 def grouped_take_refine(
+    kernel,
     slot: torch.Tensor,  # [capacity] int32 slot numbers, INT32_MAX: none
     r_s: torch.Tensor,  # [n_blocks * mpr, 128] int32 slot arrays
     w_s: torch.Tensor,
@@ -828,10 +749,6 @@ def grouped_take_refine(
     A CUDA ``slot`` launches ``csrc/grouped_take_refine.cu`` (counted in
     ``grouped_take_refine.launches``); a CPU one runs
     :func:`_grouped_refine_torch`."""
-    if not slot.is_cuda:
-        return _grouped_refine_torch(slot, r_s, w_s, swo_s, wc, prefix_words,
-                                     mpr, block_r, spc, prefix_salts,
-                                     prefix_log2, prefix_len)
     dev = slot.device
     prefix_on = prefix_words is not None
     if not (1 <= mpr <= 128 and 1 <= block_r <= 1024 and 1 <= spc <= 8
@@ -852,7 +769,9 @@ def grouped_take_refine(
     psalts_a, pref_w = _refine_consts(prefix_len if prefix_on else 0,
                                       tuple(prefix_salts) if prefix_on
                                       else ())
-    rc = _grouped_fn("grouped_take_refine")(
+    name = "grouped_take_refine_launch"
+    kernel.launch(
+        kernel.entry_point(name, GROUPED_ARGTYPES[name]), dev,
         slot.data_ptr(), slot.numel(), r_s.data_ptr(), w_s.data_ptr(),
         swo_s.data_ptr(), r_s.numel(), mpr, block_r, spc,
         wc.data_ptr(), wc.numel(),
@@ -860,16 +779,8 @@ def grouped_take_refine(
         len(prefix_salts) if prefix_on else 0, prefix_log2 if prefix_on else 0,
         pref_w, prefix_len if prefix_on else 0,
         idx.data_ptr(), lw.data_ptr(), swo.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"grouped_take_refine kernel launch failed: CUDA error {rc}")
-    grouped_take_refine.launches += 1
     return idx, lw, swo
-
-
-grouped_take_refine.launches = 0
 
 
 #: C signature of ``flat_take_extract_launch`` (csrc/flat_take_extract.cu)
@@ -882,18 +793,6 @@ FLAT_ARGTYPES = [
     _P, _P, _P,  # idx, lw, swo
     _P,  # stream
 ]
-
-
-def _flat_lib():
-    from ._build import load_library
-
-    lib = load_library("flat_take_extract")
-    if lib.flat_take_extract_launch.argtypes is None:
-        lib.flat_take_extract_launch.argtypes = FLAT_ARGTYPES
-        lib.flat_take_extract_launch.restype = ctypes.c_int
-        lib.flat_take_extract_scratch_words.argtypes = [_LL, _I]
-        lib.flat_take_extract_scratch_words.restype = _LL
-    return lib
 
 
 @functools.lru_cache(maxsize=64)
@@ -928,7 +827,9 @@ def check_flat_inputs(words, chunks, sw, mll, *, q, stride, log2_words,
         raise ValueError("mll: expected one value")
 
 
+@hand_kernel(plain=_flat_extract_torch)
 def flat_take_extract(
+    kernel,
     words: torch.Tensor,  # [2**log2_words] int32 positional bloom
     chunks: torch.Tensor,  # [B, L] uint8
     sw: Optional[torch.Tensor],  # [B, M] int32 short-start words, or None
@@ -953,36 +854,26 @@ def flat_take_extract(
     A CUDA ``words`` launches ``csrc/flat_take_extract.cu`` (counted in
     ``flat_take_extract.launches``), after :func:`check_flat_inputs`; a
     CPU one runs ``filter_torch._flat_extract_torch``."""
-    if not words.is_cuda:
-        return _flat_extract_torch(words, chunks, sw, mll, q, stride,
-                                   log2_words, salts, capacity)
     check_flat_inputs(words, chunks, sw, mll, q=q, stride=stride,
                       log2_words=log2_words, salts=salts, capacity=capacity)
     dev = words.device
     B, L = chunks.shape
-    lib = _flat_lib()
-    scratch = torch.empty(
-        lib.flat_take_extract_scratch_words(B * -(-L // stride), stride),
-        dtype=torch.int32, device=dev)
+    scratch_words = kernel.entry_point("flat_take_extract_scratch_words",
+                                       [_LL, _I], _LL)
+    scratch = torch.empty(scratch_words(B * -(-L // stride), stride),
+                          dtype=torch.int32, device=dev)
     idx, lw, swo = (torch.empty(capacity, dtype=torch.int32, device=dev)
                     for _ in range(3))
     n_hits = torch.empty((), dtype=torch.int32, device=dev)
     salts_a, gram_b = _flat_consts(q, tuple(salts))
-    rc = lib.flat_take_extract_launch(
+    kernel.launch(
+        kernel.entry_point("flat_take_extract_launch", FLAT_ARGTYPES), dev,
         chunks.data_ptr(), B, L, words.data_ptr(), log2_words, salts_a,
         len(salts), sw.data_ptr() if sw is not None else None,
         mll.data_ptr(), gram_b, q, stride, capacity, scratch.data_ptr(),
         n_hits.data_ptr(), idx.data_ptr(), lw.data_ptr(), swo.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"flat_take_extract kernel launch failed: CUDA error {rc}")
-    flat_take_extract.launches += 1
     return idx, lw, swo, n_hits
-
-
-flat_take_extract.launches = 0
 
 
 #: C signature of ``verify_records_launch`` (csrc/verify_records.cu)
@@ -995,18 +886,6 @@ VERIFY_ARGTYPES = [
     _P, _P, _P, _P,  # scratch, rec_cell, rec_pack, n_rec
     _P,  # stream
 ]
-
-
-def _verify_lib():
-    from ._build import load_library
-
-    lib = load_library("verify_records")
-    if lib.verify_records_launch.argtypes is None:
-        lib.verify_records_launch.argtypes = VERIFY_ARGTYPES
-        lib.verify_records_launch.restype = ctypes.c_int
-        lib.verify_records_scratch_words.argtypes = [_LL]
-        lib.verify_records_scratch_words.restype = _LL
-    return lib
 
 
 def check_verify_inputs(table, byte_class, chunks, lengths, emit_from,
@@ -1040,7 +919,9 @@ def check_verify_inputs(table, byte_class, chunks, lengths, emit_from,
         raise ValueError("final_start: expected one value")
 
 
+@hand_kernel(plain=_verify_records_torch)
 def verify_records(
+    kernel,
     table: torch.Tensor,  # dense [S*C] int16/int32, or 2-step [S*C*C] int32
     byte_class: torch.Tensor,  # [256] int32
     used_bytes: torch.Tensor,  # uint8, read by the plain version only
@@ -1069,38 +950,27 @@ def verify_records(
     classifies through ``byte_class`` alone, which the automaton builds
     from ``used_bytes``.  A CPU one runs
     ``filter_torch._verify_records_torch``."""
-    if not table.is_cuda:
-        return _verify_records_torch(
-            table, byte_class, used_bytes, chunks, lengths, emit_from,
-            grid_idx, final_start, n_classes, stride, win_len, capacity,
-            n_hits, step)
     check_verify_inputs(
-        table, byte_class, chunks, lengths, emit_from, grid_idx, final_start, n_classes=n_classes, stride=stride, win_len=win_len,
+        table, byte_class, chunks, lengths, emit_from, grid_idx, final_start,
+        n_classes=n_classes, stride=stride, win_len=win_len,
         capacity=capacity, step=step)
     H = min(n_hits, grid_idx.shape[0])
     if H < 1:
         raise ValueError("verify_records: no hit slots")
     dev = table.device
-    lib = _verify_lib()
-    scratch = torch.empty(lib.verify_records_scratch_words(H),
-                          dtype=torch.int32, device=dev)
+    scratch_words = kernel.entry_point("verify_records_scratch_words",
+                                       [_LL], _LL)
+    scratch = torch.empty(scratch_words(H), dtype=torch.int32, device=dev)
     rec_cell = torch.empty(capacity, dtype=torch.int32, device=dev)
     rec_pack = torch.empty(capacity, dtype=torch.int32, device=dev)
     n_rec = torch.empty((), dtype=torch.int32, device=dev)
     B, L = chunks.shape
-    rc = lib.verify_records_launch(
+    kernel.launch(
+        kernel.entry_point("verify_records_launch", VERIFY_ARGTYPES), dev,
         table.data_ptr(), table.element_size(), step, byte_class.data_ptr(),
         chunks.data_ptr(), B, L, lengths.data_ptr(), emit_from.data_ptr(),
         grid_idx.data_ptr(), final_start.data_ptr(), n_classes, stride,
         win_len, H, capacity, scratch.data_ptr(), rec_cell.data_ptr(),
         rec_pack.data_ptr(), n_rec.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"verify_records kernel launch failed: CUDA error {rc}")
-    verify_records.launches += 1
     return rec_cell, rec_pack, n_rec
-
-
-verify_records.launches = 0

@@ -212,7 +212,7 @@ def _salted_probe(words: torch.Tensor, code_u: torch.Tensor, salt: int,
     return words[mul32(code_u ^ salt, KNUTH) >> (32 - log2_words)]
 
 
-def _flat_extract_torch(words, chunks, sw, mll, q, stride, log2_words,
+def _flat_extract_torch(words, chunks, sw, mll, *, q, stride, log2_words,
                         salts, capacity):
     """Plain PyTorch version of ``filter_cuda.flat_take_extract`` (the flat
     take filter's codes, probes, gate and ordered compaction); runs on any
@@ -706,8 +706,8 @@ def _record_step(s_j, final_j, pos_j, valid_j, j, row_emit, cnt, slots):
 
 
 def _verify_records_torch(
-    table_flat, byte_class, used_bytes, chunks, lengths, emit_from, grid_idx,
-    final_start, n_classes, stride, win_len, capacity, n_hits, step=1,
+    table, byte_class, used_bytes, chunks, lengths, emit_from, grid_idx,
+    final_start, *, n_classes, stride, win_len, capacity, n_hits, step=1,
 ):
     """Plain PyTorch version of :func:`~.filter_cuda.verify_records`: the
     window walk of :func:`verify_windows_records` (``step`` 1) or of
@@ -728,7 +728,7 @@ def _verify_records_torch(
             pos_j = w0 + j
             valid_j = (pos_j >= 0) & (pos_j < row_len) & active
             cls_j = torch.where(valid_j, cls[:, j], 0)
-            state = table_flat[state.long() * n_classes + cls_j].to(
+            state = table[state.long() * n_classes + cls_j].to(
                 torch.int32)
             cnt = _record_step(state, state >= final_start, pos_j, valid_j, j,
                                row_emit, cnt, slots)
@@ -747,7 +747,7 @@ def _verify_records_torch(
         else:  # dead half-step: class 0, never emits
             pos2, valid2, c2 = (pos1, torch.zeros_like(valid1),
                                 torch.zeros_like(c1))
-        entry = table_flat[
+        entry = table[
             state.long() * C2 + c1.long() * n_classes + c2
         ].to(torch.int32)
         s1 = entry >> REC2_BITS

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._build import hand_kernel
 from .filter_cuda import _check
 from .scan_torch import carry_states, scan_states
 
@@ -60,10 +61,11 @@ def tile_segment_plan(L: int, sync_len: Optional[int]) -> Tuple[int, int, int]:
 
 def _scan_states_tile_torch(
     table_flat, byte_class, used_bytes, chunks, init_state, n_classes,
-    lengths=None,
+    lengths=None, sync_len=None,
 ):
-    """Plain PyTorch version of the tile kernel (the dense engine's walk);
-    runs on any device."""
+    """Plain PyTorch version of the tile kernel (the dense engine's walk,
+    each row in one piece: ``sync_len`` changes nothing); runs on any
+    device."""
     states, last = scan_states(
         table_flat, byte_class, used_bytes, chunks, init_state, n_classes
     )
@@ -86,7 +88,9 @@ _ARGTYPES = [
 ]
 
 
+@hand_kernel(plain=_scan_states_tile_torch, on="chunks")
 def scan_states_tile(
+    kernel,
     table_flat: torch.Tensor,  # [S*C] int32 (int16 is widened)
     byte_class: torch.Tensor,  # [256] int32
     used_bytes: torch.Tensor,  # [U] uint8
@@ -110,11 +114,6 @@ def scan_states_tile(
     A CUDA ``chunks`` launches the Hopper kernel (counted in
     ``scan_states_tile.launches``, and in ``segmented_launches`` where it
     cut the rows); a CPU one runs the plain version."""
-    if not chunks.is_cuda:
-        return _scan_states_tile_torch(
-            table_flat, byte_class, used_bytes, chunks, init_state,
-            n_classes, lengths,
-        )
     dev = chunks.device
     B, L = chunks.shape
     seg_len, n_seg, warm = tile_segment_plan(L, sync_len)
@@ -136,48 +135,23 @@ def scan_states_tile(
     carry = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return states, carry
-    from ._build import load_library
-
-    fn = load_library("scan_states_tile").scan_states_tile_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    rc = fn(
+    kernel.launch(
+        kernel.entry_point("scan_states_tile_launch", _ARGTYPES), dev,
         table_flat.data_ptr(), n_entries, byte_class.data_ptr(),
         chunks.data_ptr(), init_state.data_ptr(),
         lengths.data_ptr() if lengths is not None else None,
         B, L, n_classes, seg_len, n_seg, warm, states.data_ptr(),
-        carry.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        carry.data_ptr(), segmented=n_seg > 1,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"scan_states_tile kernel launch failed: CUDA error {rc}"
-        )
-    scan_states_tile.launches += 1
-    if n_seg > 1:
-        scan_states_tile.segmented_launches += 1
     return states, carry
-
-
-scan_states_tile.launches = 0
-#: of those, the launches that walked rows in segments (``sync_len`` set)
-scan_states_tile.segmented_launches = 0
 
 
 def tile_launch_shape(n_entries: int, B: int, L: int,
                       sync_len: Optional[int] = None) -> dict:
     """Grid, block and resident blocks per SM of the kernel's launch on
     ``[B, L]`` rows of the current CUDA device (launches nothing)."""
-    from ._build import load_library
-
     _, n_seg, _ = tile_segment_plan(L, sync_len)
-    fn = load_library("scan_states_tile").scan_states_tile_shape
-    fn.argtypes = [_I, ctypes.c_longlong, _I, _P, _P, _P]
-    fn.restype = ctypes.c_int
-    grid, block, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = fn(n_entries, B * n_seg, int(L % TILE_STEP == 0),
-            ctypes.byref(grid), ctypes.byref(block), ctypes.byref(per_sm))
-    if rc != 0:
-        raise RuntimeError(f"scan_states_tile_shape: CUDA error {rc}")
-    return {"grid": grid.value, "block": block.value,
-            "blocks_per_sm": per_sm.value, "segments_per_row": n_seg}
+    shape = scan_states_tile.launch_shape(
+        "scan_states_tile_shape", [_I, ctypes.c_longlong, _I, _P, _P, _P],
+        n_entries, B * n_seg, int(L % TILE_STEP == 0))
+    return {**shape, "segments_per_row": n_seg}

@@ -6,9 +6,9 @@ random :class:`ScanConfig` (engine x ``chunk_len`` x capacity x
 ``cascade_mode`` x ``bloom_impl`` x ``table_format`` x ``find_all`` x
 handles x ``auto_shard``), scans the documents with ``match_many`` on the
 device and compares ``(pos, keyIdx)`` with :func:`brute`.  On a card the
-random public calls reach the seven hand kernels at random shapes: the
-module reports how many cases launched each one, and holds every launch
-against the kernel's plain version on the same inputs
+random public calls reach the hand kernels (``ops/_build.KERNELS``) at
+random shapes: the module reports how many cases launched each one, and
+holds every launch against the kernel's plain version on the same inputs
 (:func:`held_to_plain`).
 
     python -m php_aho_corasick_tpu_torch.soak [--seconds 600] [--seed 0]
@@ -26,15 +26,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import functools
-import inspect
 import json
 import os
 import random
 import subprocess
 import sys
 import time
-from typing import List, Optional
+from typing import Optional
 
 #: the words of a scan-time ``ValueError`` that the reference counts as a
 #: refused route rather than a failure (``benchmarks/fuzz_soak.py:80``)
@@ -42,18 +40,6 @@ SKIP_WORDS = ("ineligible", "requires", "exceeds")
 #: the reason the reference gives a ``ValueError`` from building the
 #: matcher (``benchmarks/fuzz_soak.py:76``)
 BUILD_SKIP = "forced-engine ineligible"
-#: the hand kernels' wrappers, by module, each counting its launches in
-#: its ``launches`` attribute
-KERNELS = (
-    ("ops.filter_cuda", "fused_sampled_extract"),
-    ("ops.filter_cuda", "bloom_word_vmem"),
-    ("ops.filter_cuda", "bloom_hit"),
-    ("ops.scan_cuda", "scan_states_tile"),
-    ("ops.filter_cuda", "grouped_take_extract"),
-    ("ops.filter_cuda", "grouped_take_refine"),
-    ("ops.filter_cuda", "verify_records"),
-    ("ops.filter_cuda", "flat_take_extract"),
-)
 #: shards of the one device that an ``auto_shard`` case runs on (the
 #: reference's sweep ran an 8-device CPU mesh)
 SHARD_COUNTS = (2, 4)
@@ -181,126 +167,34 @@ def run_case(case: dict, device="cuda") -> dict:
     return {"ok": sum(map(len, res))}
 
 
-def kernel_launches() -> List[int]:
-    """The hand kernels' launch counters, in :data:`KERNELS` order."""
-    import importlib
-
-    return [
-        getattr(importlib.import_module(f"{__package__}.{mod}"), name).launches
-        for mod, name in KERNELS
-    ]
-
-
-def plain_version(name: str, args: tuple, kw: dict):
-    """Kernel ``name``'s plain PyTorch version on the arguments of a call
-    of its wrapper: what the wrapper computes on a CPU tensor."""
-    import importlib
-
-    from .ops import filter_cuda
-    from .ops.filter_torch import _verify_records_torch, bloom_hit_take, u32
-    from .ops.scan_cuda import _scan_states_tile_torch
-
-    mod = dict((n, m) for m, n in KERNELS)[name]
-    wrapper = getattr(importlib.import_module(f"{__package__}.{mod}"), name)
-    bound = inspect.signature(wrapper).bind(*args, **kw)
-    bound.apply_defaults()
-    a = bound.arguments
-    if name == "fused_sampled_extract":
-        return filter_cuda._fused_extract_torch(
-            a["table"], a["phase_g"], a["sw_g"], a["mll"], a["salts"],
-            a["log2_rows"], a["pack"], a["q"], a["spc"], a["mpr"],
-            a["block_r"], (a["phase_g"].shape[1] - 8) // a["block_r"],
-            a["n_grid"], a["l16"], a["prefix_on"],
-            prefix_table=a["prefix_table"], prefix_salts=a["prefix_salts"],
-            prefix_log2=a["prefix_log2"],
-        )
-    if name == "bloom_word_vmem":
-        return filter_cuda._bank_probe_torch(
-            a["table"], u32(a["codes"]), a["salts"], a["log2_rows"],
-            a["pack"])
-    if name == "bloom_hit":
-        return bloom_hit_take(a["words"], a["slots"])
-    if name == "grouped_take_extract":
-        return filter_cuda._grouped_extract_torch(
-            a["words"], a["wc"], a["sw"], a["mll"], a["words2"], a["q"],
-            a["spc"], a["log2_words"], a["salts"], a["mpr"], a["block_r"])
-    if name == "grouped_take_refine":
-        return filter_cuda._grouped_refine_torch(
-            a["slot"], a["r_s"], a["w_s"], a["swo_s"], a["wc"],
-            a["prefix_words"], a["mpr"], a["block_r"], a["spc"],
-            a["prefix_salts"], a["prefix_log2"], a["prefix_len"])
-    if name == "flat_take_extract":
-        return filter_cuda._flat_extract_torch(
-            a["words"], a["chunks"], a["sw"], a["mll"], a["q"], a["stride"],
-            a["log2_words"], a["salts"], a["capacity"])
-    if name == "verify_records":
-        return _verify_records_torch(
-            a["table"], a["byte_class"], a["used_bytes"], a["chunks"],
-            a["lengths"], a["emit_from"], a["grid_idx"], a["final_start"],
-            a["n_classes"], a["stride"], a["win_len"], a["capacity"],
-            a["n_hits"], a["step"])
-    return _scan_states_tile_torch(
-        a["table_flat"], a["byte_class"], a["used_bytes"], a["chunks"],
-        a["init_state"], a["n_classes"], a["lengths"])
-
-
 @contextlib.contextmanager
 def held_to_plain():
-    """Every call of the kernel wrappers, while the context is open,
-    is held against the kernel's plain version on the same inputs.
-    Yields ``{kernel: largest absolute difference}`` over those calls; an
-    output of another shape or dtype raises :class:`SoakMismatch`.  The
-    filters' outputs are candidate masks that the exact verify trims, so
-    a kernel that keeps too much would not show in the records: this
-    check is what holds the kernels themselves at the soak's shapes.
-    The wrappers are replaced in every module of the package that holds
-    them by name, and still count their launches."""
-    import importlib
+    """Every launch of a hand kernel, while the context is open, is held
+    against the kernel's plain version on the same inputs
+    (``ops/_build.observed``).  Yields ``{kernel: largest absolute
+    difference}`` over those launches; an output of another shape or
+    dtype raises :class:`SoakMismatch`.  The filters' outputs are
+    candidate masks that the exact verify trims, so a kernel that keeps
+    too much would not show in the records: this check is what holds the
+    kernels themselves at the soak's shapes."""
+    from .ops import _build
 
-    from . import Matcher  # noqa: F401  (binds the by-name imports first)
+    err = dict.fromkeys(_build.KERNELS, 0)
 
-    err = {name: 0 for _, name in KERNELS}
-    undo = []
+    def hold(kernel, args, kw, got):
+        want = kernel.plain(*args, **kw)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        for i, (g, w) in enumerate(pairs):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise SoakMismatch(
+                    f"{kernel.name} output {i}: {tuple(g.shape)} {g.dtype}, "
+                    f"its plain version {tuple(w.shape)} {w.dtype}")
+            if g.numel():
+                d = int((g.long() - w.long()).abs().max().item())
+                err[kernel.name] = max(err[kernel.name], d)
 
-    def spy_of(name, real):
-        # wraps: the wrapper's signature (plain_version binds to it) and
-        # its launch counters, which it counts on the name its module holds
-        @functools.wraps(real)
-        def spy(*args, **kw):
-            got = real(*args, **kw)
-            want = plain_version(name, args, kw)
-            pairs = (zip(got, want) if isinstance(got, tuple)
-                     else [(got, want)])
-            for i, (g, w) in enumerate(pairs):
-                if g.shape != w.shape or g.dtype != w.dtype:
-                    raise SoakMismatch(
-                        f"{name} output {i}: {tuple(g.shape)} {g.dtype}, "
-                        f"its plain version {tuple(w.shape)} {w.dtype}")
-                if g.numel():
-                    d = int((g.long() - w.long()).abs().max().item())
-                    err[name] = max(err[name], d)
-            return got
-
-        return spy
-
-    for mod, name in KERNELS:
-        real = getattr(importlib.import_module(f"{__package__}.{mod}"), name)
-        spy = spy_of(name, real)
-        holders = [m for key, m in list(sys.modules.items())
-                   if key.startswith(f"{__package__}.")
-                   and getattr(m, name, None) is real]
-        for m in holders:
-            setattr(m, name, spy)
-        undo.append((real, spy, holders))
-    try:
+    with _build.observed(hold):
         yield err
-    finally:
-        for real, spy, holders in undo:
-            for m in holders:
-                setattr(m, real.__name__, real)
-            for attr in ("launches", "segmented_launches"):
-                if hasattr(real, attr):
-                    setattr(real, attr, getattr(spy, attr))
 
 
 def run_cases(seed: int, n: int, device="cuda", log=None) -> dict:
@@ -314,13 +208,15 @@ def run_cases(seed: int, n: int, device="cuda", log=None) -> dict:
     and so does a kernel launch that differs from its plain version."""
     import torch
 
+    from .ops._build import launch_counts
+
     rng = random.Random(seed)
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     skips: dict = {}
-    k_cases = [0] * len(KERNELS)
-    k_launches = [0] * len(KERNELS)
+    k_cases = dict.fromkeys(launch_counts(), 0)
+    k_launches = dict(k_cases)
     mem = []
     ok = 0
     with (held_to_plain() if on_card else contextlib.nullcontext()) as err:
@@ -328,16 +224,16 @@ def run_cases(seed: int, n: int, device="cuda", log=None) -> dict:
             case_seed = rng.randrange(1 << 30)
             if log:
                 log(f"CASE {case_seed}")
-            before = kernel_launches()
+            before = launch_counts()
             r = run_case(draw_case(case_seed), device)
             if err and any(err.values()):
                 raise SoakMismatch(
                     f"case seed {case_seed}: a hand kernel differs from its "
                     f"plain version on the same inputs (largest absolute "
                     f"difference by kernel: {err})")
-            for j, (a, b) in enumerate(zip(before, kernel_launches())):
-                k_cases[j] += b > a
-                k_launches[j] += b - a
+            for name, count in launch_counts(before).items():
+                k_cases[name] += count > 0
+                k_launches[name] += count
             if "ok" in r:
                 ok += 1
             else:
@@ -347,9 +243,9 @@ def run_cases(seed: int, n: int, device="cuda", log=None) -> dict:
                 mem.append(torch.cuda.memory_allocated())
     return dict(
         cases=n, scans=ok, skips=skips,
-        kernels={name: {"cases": c, "launches": k,
+        kernels={name: {"cases": c, "launches": k_launches[name],
                         "max_abs_err": err[name] if err else None}
-                 for (_, name), c, k in zip(KERNELS, k_cases, k_launches)},
+                 for name, c in k_cases.items()},
         memory=dict(
             after_first=mem[0], after_last=mem[-1],
             peak=torch.cuda.max_memory_allocated(),

@@ -97,7 +97,7 @@ def _fused_case(cuda, k, log2_rows, pack, spc, shorts, prefix, seed):
               prefix_on=prefix, prefix_table=c(ptab) if prefix else None,
               prefix_salts=PREFIX_SALTS if prefix else (),
               prefix_log2=15 if prefix else 0)
-    return args, kw, n_blocks
+    return args, kw
 
 
 @pytest.mark.cuda
@@ -105,19 +105,13 @@ def _fused_case(cuda, k, log2_rows, pack, spc, shorts, prefix, seed):
     "k,log2_rows,pack,spc,q,shorts,prefix,mpr", FUSED_CASES)
 def test_kernel_matches_plain(cuda, k, log2_rows, pack, spc, q, shorts,
                               prefix, mpr):
-    args, kw, n_blocks = _fused_case(cuda, k, log2_rows, pack, spc, shorts,
-                                     prefix, k * 100 + spc * 10 + q)
+    args, kw = _fused_case(cuda, k, log2_rows, pack, spc, shorts, prefix,
+                           k * 100 + spc * 10 + q)
+    kw = dict(kw, salts=_salts(k), log2_rows=log2_rows, pack=pack, q=q,
+              spc=spc, mpr=mpr)
     before = fused_sampled_extract.launches
-    got = fused_sampled_extract(
-        *args, salts=_salts(k), log2_rows=log2_rows, pack=pack, q=q,
-        spc=spc, mpr=mpr, **kw,
-    )
-    want = _fused_extract_torch(
-        *args, _salts(k), log2_rows, pack, q, spc, mpr, 1024, n_blocks,
-        kw["n_grid"], kw["l16"], kw["prefix_on"],
-        prefix_table=kw["prefix_table"], prefix_salts=kw["prefix_salts"],
-        prefix_log2=kw["prefix_log2"],
-    )
+    got = fused_sampled_extract(*args, **kw)
+    want = _fused_extract_torch(*args, **kw)
     torch.cuda.synchronize()
     assert fused_sampled_extract.launches == before + 1
     for a, b in zip(got, want):
@@ -411,8 +405,7 @@ def test_grouped_take_extract_matches_plain(cuda, stride, q, k, dual, shorts,
     got = grouped_take_extract(a["words"], a["wc"], a["sw"], a["mll"],
                                a["words2"], **kw)
     want = _grouped_extract_torch(a["words"], a["wc"], a["sw"], a["mll"],
-                                  a["words2"], kw["q"], kw["spc"],
-                                  log2_words, kw["salts"], mpr, block_r)
+                                  a["words2"], **kw)
     torch.cuda.synchronize()
     assert grouped_take_extract.launches == before + 1
     for x, y in zip(got, want):
@@ -441,8 +434,8 @@ def test_grouped_take_refine_matches_plain(cuda, stride, q, dual, prefix_len,
                         0.05, dual, True)
     mpr, block_r, spc = 24, 256, stride // 4
     r_s, w_s, swo_s, _, _ = _grouped_extract_torch(
-        a["words"], a["wc"], a["sw"], a["mll"], a["words2"], q, spc, 13,
-        _salts(2), mpr, block_r)
+        a["words"], a["wc"], a["sw"], a["mll"], a["words2"], q=q, spc=spc,
+        log2_words=13, salts=_salts(2), mpr=mpr, block_r=block_r)
     slot, n = blocked_nonzero(
         ((r_s >= 0) & ((w_s | swo_s) != 0)).reshape(-1), capacity)
     pw = None
@@ -456,8 +449,7 @@ def test_grouped_take_refine_matches_plain(cuda, stride, q, dual, prefix_len,
               prefix_log2=prefix_log2, prefix_len=prefix_len)
     before = grouped_take_refine.launches
     got = grouped_take_refine(slot, r_s, w_s, swo_s, a["wc"], pw, **kw)
-    want = _grouped_refine_torch(slot, r_s, w_s, swo_s, a["wc"], pw,
-                                 *kw.values())
+    want = _grouped_refine_torch(slot, r_s, w_s, swo_s, a["wc"], pw, **kw)
     torch.cuda.synchronize()
     assert grouped_take_refine.launches == before + 1
     for x, y in zip(got, want):
@@ -489,8 +481,9 @@ def test_grouped_take_kernels_at_path_shapes(cuda, shape):
                                log2_words=log2_words, salts=_salts(2),
                                mpr=mpr, block_r=block_r)
     want = _grouped_extract_torch(a["words"], a["wc"], None, a["mll"],
-                                  a["words2"], q, spc, log2_words, _salts(2),
-                                  mpr, block_r)
+                                  a["words2"], q=q, spc=spc,
+                                  log2_words=log2_words, salts=_salts(2),
+                                  mpr=mpr, block_r=block_r)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     r_s, w_s, swo_s, _, cnt = got
@@ -503,8 +496,7 @@ def test_grouped_take_kernels_at_path_shapes(cuda, shape):
     kw = dict(mpr=mpr, block_r=block_r, spc=spc, prefix_salts=PREFIX_SALTS,
               prefix_log2=plog2, prefix_len=16)
     got = grouped_take_refine(slot, r_s, w_s, swo_s, a["wc"], pw, **kw)
-    want = _grouped_refine_torch(slot, r_s, w_s, swo_s, a["wc"], pw,
-                                 *kw.values())
+    want = _grouped_refine_torch(slot, r_s, w_s, swo_s, a["wc"], pw, **kw)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
@@ -567,7 +559,7 @@ def test_flat_take_extract_matches_plain(cuda, B, L, stride, q, k, shorts,
               capacity=capacity)
     before = flat_take_extract.launches
     got = flat_take_extract(words, chunks, sw, mll_t, **kw)
-    want = _flat_extract_torch(words, chunks, sw, mll_t, *kw.values())
+    want = _flat_extract_torch(words, chunks, sw, mll_t, **kw)
     torch.cuda.synchronize()
     assert flat_take_extract.launches == before + 1
     for x, y in zip(got, want):

@@ -5,7 +5,6 @@ replays the case, its draws are the reference's
 against the plain version catches a kernel that the exact verify
 hides."""
 
-import functools
 import importlib.util
 import json
 import pathlib
@@ -16,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from php_aho_corasick_tpu_torch import api, soak  # noqa: E402
+from php_aho_corasick_tpu_torch.ops import _build  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEED = 3  # its first 20 cases scan through all five engine settings and skip
@@ -132,7 +132,7 @@ def test_parent_runs_a_child_and_writes_artifact(tmp_path, capsys):
     assert "SOAK OK: 2 cases, 0 mismatches" in out, out
     got = json.loads(art.read_text())
     assert (got["cases"], got["mismatches"], got["seed"]) == (2, 0, 1)
-    assert set(got["kernels"]) == {name for _, name in soak.KERNELS}
+    assert set(got["kernels"]) == set(_build.KERNELS)
     assert got["card"] is None and got["device"] == "cpu"
     # two children's summaries add up
     part = {k: got[k] for k in ("cases", "scans", "skips", "kernels",
@@ -238,31 +238,33 @@ KERNEL_FAULTS = {
 }
 
 
+def _as_plain(kernel, *args, **kw):
+    return kernel.plain(*args, **kw)
+
+
 @pytest.mark.parametrize("name", sorted(KERNEL_FAULTS))
 def test_plain_check_catches_a_faulty_kernel(name, monkeypatch):
-    """Every wrapper call inside ``held_to_plain`` is held against the
-    plain version: a wrong output shows as a difference, also where the
-    exact verify trims it and the records still equal brute force."""
-    from php_aho_corasick_tpu_torch.models import tile_dfa
-    from php_aho_corasick_tpu_torch.ops import filter_cuda, scan_cuda
-
+    """Every hand-kernel launch inside ``held_to_plain`` is held against
+    the plain version: a wrong output shows as a difference, also where
+    the exact verify trims it and the records still equal brute force.
+    A card is stood in on the CPU: every call takes the kernels' route
+    (``_build.on_card``), whose launch code here is the plain version, or
+    for ``name`` a faulty one."""
     args, fault = KERNEL_FAULTS[name]
     case = _kernel_case(*args)
+    monkeypatch.setattr(_build, "on_card", lambda t: True)
+    for kernel in _build.KERNELS.values():
+        monkeypatch.setattr(kernel, "code", _as_plain)
     with soak.held_to_plain() as err:
         assert "ok" in soak.run_case(case, "cpu")
-    assert err == {n: 0 for _, n in soak.KERNELS}
-    home = scan_cuda if name == "scan_states_tile" else filter_cuda
-    real = getattr(home, name)
+    assert err == dict.fromkeys(_build.KERNELS, 0)
     calls = []
 
-    @functools.wraps(real)
-    def faulty(*a, **kw):
+    def faulty(kernel, *a, **kw):
         calls.append(1)
-        return fault(real(*a, **kw))
+        return fault(kernel.plain(*a, **kw))
 
-    for mod in (filter_cuda, scan_cuda, tile_dfa):
-        if getattr(mod, name, None) is real:
-            monkeypatch.setattr(mod, name, faulty)
+    monkeypatch.setattr(_build.KERNELS[name], "code", faulty)
     with soak.held_to_plain() as err:
         try:
             got = soak.run_case(case, "cpu")
@@ -272,18 +274,17 @@ def test_plain_check_catches_a_faulty_kernel(name, monkeypatch):
     assert all(d == 0 for n, d in err.items() if n != name), err
     if name != "scan_states_tile":
         assert "ok" in got  # brute force alone would not see it
-    # the context puts back what each module held
-    assert getattr(home, name) is faulty
+    # the context leaves nothing observing
+    assert not _build._observers
     monkeypatch.undo()
-    assert tile_dfa.scan_states_tile is scan_cuda.scan_states_tile
-    assert soak.kernel_launches() == [0] * len(soak.KERNELS)
+    assert not any(_build.launch_counts().values())
 
 
 def test_merge_keeps_the_largest_difference():
     def part(d):
         return dict(cases=1, scans=1, skips={}, memory=None, kernels={
             n: {"cases": 1, "launches": 2, "max_abs_err": d}
-            for _, n in soak.KERNELS})
+            for n in _build.KERNELS})
 
     both = soak.merge(soak.merge(None, part(0)), part(3))
     assert all(k == {"cases": 2, "launches": 4, "max_abs_err": 3}
